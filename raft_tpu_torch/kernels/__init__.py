@@ -1,0 +1,124 @@
+"""Registry of the port's hand-written CUDA kernels and their launch
+counters.
+
+Each entry names the CUDA source, the C entry point and its argument
+types, the plain PyTorch version of the same function, the ``raft_tpu``
+Pallas kernels it replaces, and the test that holds it against the
+reference package. The kernels are built at first use
+(:mod:`raft_tpu_torch.kernels.build`); importing this package needs no
+``nvcc`` and no CUDA.
+
+A wrapper adds one to its kernel's counter each time it launches the
+kernel, and nowhere else, so a run can show that a path went through
+the kernels (:func:`reset_launch_counts`, :func:`launch_counts`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import threading
+from typing import Dict, Tuple
+
+__all__ = ["KernelSpec", "KernelLaunchError", "REGISTRY", "launch",
+           "launch_counts", "reset_launch_counts"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+
+# (x0, x1, xn, ldx, y0, y1, yn, ldy): the operand block every entry point
+# takes after its tier (and metric); see csrc/common.cuh
+_OPERANDS = (_P, _P, _P, _L, _P, _P, _P, _L)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    name: str
+    source: str             # relative to raft_tpu_torch/
+    symbol: str             # extern "C" entry point
+    argtypes: Tuple
+    plain: str              # dotted path of the plain PyTorch version
+    ports: str              # the raft_tpu Pallas kernels it replaces
+    replaces: str           # file:line of the (first) TPU kernel body
+    parity_test: str        # test holding it against the reference
+
+
+REGISTRY: Dict[str, KernelSpec] = {
+    spec.name: spec for spec in (
+        KernelSpec(
+            name="pairwise_tile",
+            source="csrc/pairwise_tile.cu",
+            symbol="raft_pairwise_tile",
+            # tier, metric, operands..., out, m, n, k, stream
+            argtypes=(_I, _I) + _OPERANDS + (_P, _I, _I, _I, _P),
+            plain="raft_tpu_torch.linalg.contractions._pairwise_plain",
+            ports="raft_tpu/linalg/contractions.py:_pairwise_tile_kernel, "
+                  "_pairwise_tile_kernel_split",
+            replaces="raft_tpu/linalg/contractions.py:360",
+            parity_test="tests/test_torch_contractions.py"
+                        "::test_pairwise_matches_reference"),
+        KernelSpec(
+            name="fused_argmin",
+            source="csrc/fused_argmin.cu",
+            symbol="raft_fused_argmin",
+            # tier, metric, operands..., val, idx, m, n, k, stream
+            argtypes=(_I, _I) + _OPERANDS + (_P, _P, _I, _I, _I, _P),
+            plain="raft_tpu_torch.linalg.contractions._argmin_plain",
+            ports="raft_tpu/linalg/contractions.py:_argmin_resident_kernel"
+                  "(_split), _argmin_tiled_kernel(_split)",
+            replaces="raft_tpu/linalg/contractions.py:665",
+            parity_test="tests/test_torch_contractions.py"
+                        "::test_fused_argmin_matches_reference"),
+        KernelSpec(
+            name="fused_lloyd",
+            source="csrc/fused_lloyd.cu",
+            symbol="raft_fused_lloyd",
+            # tier, operands..., sums, counts, val, idx, part0, part1,
+            # part_cnt, blocks, m, n, k, stream
+            argtypes=(_I,) + _OPERANDS + (_P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _P),
+            plain="raft_tpu_torch.linalg.contractions._lloyd_plain",
+            ports="raft_tpu/linalg/contractions.py:_lloyd_kernel, "
+                  "_lloyd_kernel_split",
+            replaces="raft_tpu/linalg/contractions.py:931",
+            parity_test="tests/test_torch_contractions.py"
+                        "::test_fused_lloyd_matches_reference"),
+    )
+}
+
+_lock = threading.Lock()
+_launches: Dict[str, int] = {name: 0 for name in REGISTRY}
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry point returned a CUDA error."""
+
+
+def launch_counts() -> Dict[str, int]:
+    with _lock:
+        return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    with _lock:
+        for name in _launches:
+            _launches[name] = 0
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream: ``args``
+    are the entry point's arguments without the trailing stream. Raises
+    :class:`KernelLaunchError` on a CUDA error and counts the launch."""
+    import torch
+
+    from raft_tpu_torch.kernels import build
+
+    fn = build.entry_point(REGISTRY[name])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise KernelLaunchError(f"{name}: CUDA error {err} at launch")
+    with _lock:
+        _launches[name] += 1
