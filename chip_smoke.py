@@ -5,15 +5,28 @@
 
 Needs one CUDA card, the CUDA toolkit's ``nvcc`` and this checkout. It
 builds the port's CUDA kernels from ``raft_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card at all three precision
-tiers, drives the main path — k-means (Lloyd) on 1,000,000 x 128 f32
-with k = 1024 at tier 'high', then the distance embedding of the data —
-and times every kernel at the shapes that path gives it. Each phase
-prints one JSON line; the line before the last is the card's name and
-power limit from ``nvidia-smi``, the last is the result. Longer output
-(compiler logs, all numbers) goes to ``chiprun_out/chip_smoke.json``.
-Any failed check raises, and the script exits non-zero; without CUDA it
-exits non-zero before printing any result.
+against its plain PyTorch version on the card (the contraction kernels
+at all three precision tiers, the selection kernels at ragged shapes
+with ties, NaN and inf), and drives three paths, each with the launch
+counts set to 0 just before it and read just after:
+
+- k-means (Lloyd) on 1,000,000 x 128 f32 with k = 1024 at tier 'high',
+  then the distance embedding of the data;
+- brute-force kNN, db 1,048,576 x 128 f32, 4096 queries, tier 'high':
+  k = 64 and k = 256 (the fused route), k = 1024 (the radix route);
+- select_k: AUTO on 64 x 2^20 f32, k = 2048 (radix), and
+  WARPSORT_FILTERED on 1024 x 65,536 f32, k = 64 (insertion), on
+  random and on descending rows.
+
+It then holds every kernel against its plain version at the shapes
+those paths give it (the kNN radix route's 4096 x 32,768 chunk of
+distances included) and times it there. Each
+phase prints one JSON line; the line before the last is the card's name
+and power limit from ``nvidia-smi``, the last is the result. Longer
+output (compiler logs, all numbers) goes to
+``chiprun_out/chip_smoke.json``. Any failed check raises, and the script
+exits non-zero; without CUDA it exits non-zero before printing any
+result.
 """
 
 import json
@@ -26,6 +39,14 @@ import time
 SEED = 20261016
 MAIN_M, MAIN_K, MAIN_N, MAIN_ITERS = 1_000_000, 128, 1024, 10
 PAIRWISE_M, PAIRWISE_K = 5000, 50          # BASELINE config 1
+# neighbors/knn_l2 (benches/bench_prims.py:1146): db, queries, dims
+KNN_N, KNN_Q, KNN_D = 1 << 20, 4096, 128
+KNN_KS = (64, 256, 1024)                   # fused, fused, radix
+KNN_SAMPLE = 64                            # queries checked against f64
+# matrix/select_k_bars (bench_prims.py:382) and the insert route's rows
+SELECT_RADIX = (64, 1 << 20, 2048)
+SELECT_INSERT = (1024, 65536, 64)
+PLAIN_Q = 256      # queries of the fused top-k's plain version at full n
 REL = 1e-5            # bf16x3 / f32 agreement between two f32 summation orders
 # H100 SXM peaks at 700 W (dense bf16 tensor-core rate, HBM3 bandwidth)
 PEAK_BF16_FLOPS = 989e12
@@ -322,8 +343,8 @@ def main_path(res, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    for name, count in launches.items():
-        check(count > 0, f"main path never launched {name}")
+    for name in ("pairwise_tile", "fused_argmin", "fused_lloyd"):
+        check(launches[name] > 0, f"main path never launched {name}")
     check(n_iter == MAIN_ITERS, f"n_iter {n_iter} != {MAIN_ITERS} at tol 0")
     check(tuple(c.shape) == (MAIN_N, MAIN_K) and bool(torch.isfinite(c).all()),
           "centroids not finite [1024, 128]")
@@ -397,9 +418,8 @@ def pairwise_phase(res, dev):
         kernels.reset_launch_counts()
         got = pairwise_distance(res, x, metric=metric)
         torch.cuda.synchronize()
-        launches = kernels.launch_counts()
-        check(launches == {"pairwise_tile": 1, "fused_argmin": 0,
-                           "fused_lloyd": 0},
+        launches = {n: c for n, c in kernels.launch_counts().items() if c}
+        check(launches == {"pairwise_tile": 1},
               f"pairwise_distance {name}: launches {launches}, want one "
               "pairwise_tile")
         ms = cuda_ms(lambda: pairwise_distance(res, x, metric=metric), 5)
@@ -441,6 +461,528 @@ def bound(tier, m, n, k, out_bytes, extra_f32_ops=0):
              + extra_f32_ops / PEAK_F32_FLOPS) * 1e3
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "bytes" if t_bytes > t_ops else "operations"
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the selection kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def topk_lists_agree(got, want, dist_rows, scale, rel, what):
+    """Two top-k results ``(vals [m, k], idx [m, k])`` agree: the same
+    empty slots (+inf, 0); indices equal except at near-ties, where the
+    plain distances (``dist_rows(rows)`` gives [len(rows), n]) of the
+    two columns lie within rel * scale of the row; values within that
+    band where finite. Returns (differing positions, max abs error)."""
+    import torch
+
+    gv, gi = got
+    wv, wi = want
+    fin = torch.isfinite(wv)
+    check(torch.equal(fin, torch.isfinite(gv)), f"{what}: empty slots differ")
+    check(torch.equal(gi[~fin], wi[~fin]) and bool((gi[~fin] == 0).all()),
+          f"{what}: empty slots not (+inf, 0)")
+    bad = torch.nonzero(gi != wi)
+    check(bad.shape[0] <= max(1, gi.numel() // 100),
+          f"{what}: {bad.shape[0]} of {gi.numel()} indices differ")
+    if bad.shape[0]:
+        rows = bad[:, 0]
+        d = dist_rows(rows)
+        at = torch.arange(rows.numel(), device=d.device)
+        gap = (d[at, gi[rows, bad[:, 1]].long()]
+               - d[at, wi[rows, bad[:, 1]].long()]).abs()
+        check(bool((gap <= rel * scale[rows]).all()),
+              f"{what}: indices differ outside the tie band")
+    err = (gv - wv).abs()[fin]
+    band = (rel * scale[:, None] + 1e-6).expand_as(gv)[fin]
+    check(bool((err <= band).all()), f"{what}: values off by "
+          f"{float(err.max()) if err.numel() else 0.0}")
+    return int(bad.shape[0]), float(err.max()) if err.numel() else 0.0
+
+
+def exact_equal(got, want, what):
+    """Outputs equal bit for bit: floats by their bits, integers (any
+    width or sign) as int64."""
+    import torch
+
+    for a, b in zip(got, want):
+        if a.is_floating_point():
+            a, b = a.float().view(torch.int32), b.float().view(torch.int32)
+        else:
+            a, b = a.to(torch.int64), b.to(torch.int64)
+        check(a.shape == b.shape and torch.equal(a, b),
+              f"{what}: kernel differs from plain")
+
+
+def topk_parity(dev):
+    """The four selection kernels against their plain versions on the
+    card at ragged shapes: ties (the smaller index wins), NaN and +-inf
+    rows, rows with fewer than k candidates; the fused top-k at all
+    three tiers and metrics; the radix kernels at k = 1, k = len, an
+    all-equal row, a threshold inside a tie run, and every dtype."""
+    import torch
+
+    from raft_tpu_torch.linalg import contractions as tc
+    from raft_tpu_torch.matrix import _topk_order
+    from raft_tpu_torch.matrix import radix_select as trs
+    from raft_tpu_torch.matrix import topk_insert as tti
+    from raft_tpu_torch.neighbors import fused_topk as tft
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    out = {"fused_topk": 0.0, "topk_insert": 0.0, "radix_threshold": 0.0,
+           "radix_emit": 0.0}
+    mismatches = 0
+    # fused top-k: 517 queries, 3001 rows (24 row tiles, one a split)
+    m, n, kd = 517, 3001, 45
+    x = torch.randn(m, kd, generator=gen, device=dev)
+    y = torch.randn(n, kd, generator=gen, device=dev)
+    y[2900] = y[17]                             # tied column pair ...
+    x[0] = y[17] + 1e-3                         # ... nearest for query 0
+    x[5] = float("nan")                         # no candidate at all
+    y[40] = float("nan")                        # never a candidate
+    xn64 = (x.double() ** 2).nansum(1)
+    yn64 = (y.double() ** 2).nansum(1)
+    scales = {"l2": (xn64 + yn64.max()).float(),
+              "cosine": torch.ones(m, device=dev),
+              "inner": (xn64 * yn64.max()).sqrt().float()}
+    for tier in ("default", "high", "highest"):
+        xs, ys = tc._side(x, tier), tc._side(y, tier)
+        for metric in ("l2", "cosine", "inner"):
+            for k, nn in ((1, n), (64, n), (256, n), (256, 100)):
+                what = f"fused_topk {tier} {metric} k={k} n={nn}"
+                yss = side_rows(ys, slice(0, nn))
+                got = tft._fused_topk(tier, metric, xs, yss, m, nn, kd, k)
+                again = tft._fused_topk(tier, metric, xs, yss, m, nn, kd, k)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"{what}: two runs differ")
+                want = tft._fused_topk_plain(tier, metric, xs, yss, m, nn,
+                                             kd, k)
+                bad, err = topk_lists_agree(
+                    got, want, plain_rows(tier, metric, xs, yss, nn, kd),
+                    scales[metric], REL, what)
+                mismatches += bad
+                out["fused_topk"] = max(out["fused_topk"], err)
+                check(got[1][5].tolist() == [0] * k, f"{what}: NaN row")
+                if nn == 100:
+                    check(bool(torch.isinf(got[0][:, 99:]).all()),
+                          f"{what}: rows past n not empty")
+                if metric == "l2" and k > 1 and nn == n:
+                    check(got[1][0, :2].tolist() == [17, 2900],
+                          f"{what}: tie not in column order")
+
+    # insertion over a materialised matrix
+    v = torch.randn(77, 5003, generator=gen, device=dev)
+    v[:, 1000:1100] = v[:, 7:8]                 # ties
+    v[3] = float("nan")
+    v[6, ::2] = float("-inf")
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for select_min in (True, False):
+            vv = v.clone()
+            vv[4, :-10] = float("inf") if select_min else float("-inf")
+            vv[5] = torch.sort(vv[5], descending=select_min).values
+            vv = vv.to(dtype)
+            for k in (1, 64, 256):
+                exact_equal(tti._topk_insert(vv, k, select_min),
+                            tti._insert_plain(vv, k, select_min),
+                            f"topk_insert {dtype} min={select_min} k={k}")
+
+    # radix threshold + emit, on sortable keys of every ported dtype
+    rows = {}
+    base = torch.randn(6, 300001, generator=gen, device=dev)
+    base[1, 50:5000] = -3.0                     # a long tie run
+    base[2] = 1.0                               # all equal
+    base[3, ::3] = float("nan")
+    base[4, ::2] = float("inf")
+    ints = torch.randint(-100, 100, (6, 300001), generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.int8,
+                  torch.int16, torch.int32, torch.uint8, torch.uint16,
+                  torch.uint32):
+        if dtype.is_floating_point:
+            vals = base.to(dtype)
+        elif dtype in (torch.uint8, torch.uint16, torch.uint32):
+            vals = (ints + 100).to(dtype)
+        else:
+            vals = ints.to(dtype)
+        for select_min in (True, False):
+            keys = trs._to_key(vals, select_min)
+            for k in (1, 77, 4096, keys.shape[1]):
+                what = f"radix {dtype} min={select_min} k={k}"
+                t, ntie = trs._radix_threshold(keys, k)
+                exact_equal((t, ntie), trs._threshold_plain(keys, k), what)
+                exact_equal((trs._radix_emit(keys, t, ntie, k),),
+                            (trs._emit_plain(keys, t, ntie, k),), what)
+            got = trs.radix_select_k(vals, 77, select_min)
+            want = _topk_order.topk(vals, 77, largest=not select_min)
+            exact_equal(got, want, f"radix_select_k {dtype}")
+        rows[str(dtype)] = "pass"
+    # many short rows: one block a row, as on the kNN radix route
+    keys = trs._to_key(torch.randn(700, 5000, generator=gen, device=dev),
+                       True)
+    for k in (1, 1000, 5000):
+        t, ntie = trs._radix_threshold(keys, k)
+        exact_equal((t, ntie, trs._radix_emit(keys, t, ntie, k)),
+                    trs._threshold_plain(keys, k)
+                    + (trs._emit_plain(keys, t, ntie, k),), "radix 700 rows")
+    emit("topk_parity", fused_topk_shape=[m, n, kd],
+         fused_topk_ks=[1, 64, 256], tiers=["default", "high", "highest"],
+         metrics=["l2", "cosine", "inner"], insert_shape=[77, 5003],
+         radix_shapes=[[6, 300001], [700, 5000]], radix_dtypes=rows,
+         near_tie_index_mismatches=mismatches, max_abs_err=out,
+         tolerance=f"fused_topk: indices equal except where the plain "
+                   f"distances lie within {REL} x (|x|^2 + max|y|^2) (l2), "
+                   f"{REL} (cosine), {REL} x |x| max|y| (inner), values "
+                   f"within that band; topk_insert, radix_threshold, "
+                   f"radix_emit: bit-exact")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the kNN path
+# ---------------------------------------------------------------------------
+
+
+def knn_path(res, dev):
+    """knn at the neighbors/knn_l2 shape on the fused (k = 64, 256) and
+    radix (k = 1024) routes: route and launch counts per call, indices
+    against an exact f64 search on a sample of queries."""
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.neighbors import knn, knn_plan
+    from raft_tpu_torch.util import precision as tprec
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    db = torch.randn(KNN_N, KNN_D, generator=gen, device=dev)
+    q = torch.randn(KNN_Q, KNN_D, generator=gen, device=dev)
+    sample = torch.randperm(KNN_Q, generator=gen, device=dev)[:KNN_SAMPLE]
+    d64 = ((q[sample].double() ** 2).sum(1)[:, None]
+           - 2.0 * q[sample].double() @ db.double().T
+           + (db.double() ** 2).sum(1)[None, :])
+    scale = ((q[sample].double() ** 2).sum(1)
+             + (db.double() ** 2).sum(1).max()).float()
+    total = {name: 0 for name in kernels.REGISTRY}
+    calls = {}
+    for k in KNN_KS:
+        path, chunk = knn_plan(KNN_Q, KNN_N, k)
+        want_path = "fused" if k <= 256 else "radix"
+        check(path == want_path, f"knn k={k}: route {path}, want {want_path}")
+        n_chunks = -(-KNN_N // chunk) if chunk else 0
+        with tprec.scope("high"):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            vals, idx = knn(res, db, q, k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            ms = cuda_ms(lambda: knn(res, db, q, k), 2)
+        want = ({"fused_topk": 1} if path == "fused" else
+                {"pairwise_tile": n_chunks, "radix_threshold": n_chunks,
+                 "radix_emit": n_chunks})
+        check({n_: c for n_, c in counts.items() if c} == want,
+              f"knn k={k}: launches {counts}, want {want}")
+        for name, c in counts.items():
+            total[name] += c
+        check(tuple(idx.shape) == (KNN_Q, k) and idx.dtype == torch.int32
+              and bool(torch.isfinite(vals).all()), f"knn k={k}: output")
+        check(bool((vals[:, 1:] >= vals[:, :-1]).all()),
+              f"knn k={k}: not nearest first")
+        # exact f64 search on the sample: the returned columns' exact
+        # distances, sorted, equal the exact top k within the tie band
+        got = d64.gather(1, idx[sample].long())
+        best = torch.topk(d64, k, dim=1, largest=False).values
+        band = (REL * scale.double())[:, None]
+        gap = (torch.sort(got, dim=1).values - best).abs()
+        check(bool((gap <= band).all()),
+              f"knn k={k}: off the exact top k by {float(gap.max())}")
+        err = (vals[sample].double() - got).abs()
+        check(bool((err <= band).all()),
+              f"knn k={k}: distances off by {float(err.max())}")
+        exact_rows = int((torch.sort(idx[sample].long(), 1).values == torch.sort(
+            torch.topk(d64, k, dim=1, largest=False).indices, 1).values
+        ).all(1).sum())
+        calls[k] = dict(route=path, chunk=chunk, wall_s=wall, ms=ms,
+                        launches={n_: c for n_, c in counts.items() if c},
+                        max_gap_to_exact=float(gap.max()),
+                        max_abs_err=float(err.max()),
+                        sample_rows_with_exact_set=exact_rows)
+        del vals, idx
+        torch.cuda.empty_cache()
+    emit("knn_path", db=[KNN_N, KNN_D], queries=KNN_Q, metric="l2",
+         tier="high", sample_checked=KNN_SAMPLE, calls=calls, launches=total,
+         tolerance=f"exact f64 top-k distances within {REL} x (|q|^2 + "
+                   "max|x|^2) of the returned columns'")
+    return db, q, total, calls
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the select_k path
+# ---------------------------------------------------------------------------
+
+
+def select_path(res, dev):
+    """select_k AUTO (radix) and WARPSORT_FILTERED (insertion) at full
+    width, each exactly against the stable key sort on the card."""
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.matrix import SelectAlgo, _topk_order, select_k
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rr, rc, rk = SELECT_RADIX
+    ir, ic, ik = SELECT_INSERT
+    v_radix = torch.randn(rr, rc, generator=gen, device=dev)
+    v_ins = torch.randn(ir, ic, generator=gen, device=dev)
+    v_desc = torch.sort(v_ins, dim=1, descending=True).values
+    cases = (("auto_radix", v_radix, rk, SelectAlgo.AUTO,
+              {"radix_threshold": 1, "radix_emit": 1}),
+             ("filtered_random", v_ins, ik, SelectAlgo.WARPSORT_FILTERED,
+              {"topk_insert": 1}),
+             ("filtered_descending", v_desc, ik,
+              SelectAlgo.WARPSORT_FILTERED, {"topk_insert": 1}))
+    total = {}
+    out = {}
+    for name, v, k, algo, want in cases:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        vals, idx = select_k(res, v, k, algo=algo)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n_: c for n_, c in kernels.launch_counts().items() if c}
+        check(counts == want, f"select_k {name}: launches {counts}")
+        for n_, c in counts.items():
+            total[n_] = total.get(n_, 0) + c
+        wv, wi = _topk_order.topk(v, k, largest=False)
+        check(torch.equal(idx.long(), wi) and torch.equal(vals, wv),
+              f"select_k {name}: differs from the stable key sort")
+        out[name] = dict(shape=list(v.shape), k=k, algo=algo.name,
+                         wall_s=wall, launches=counts,
+                         ms=cuda_ms(lambda: select_k(res, v, k, algo=algo),
+                                    3))
+        del vals, idx, wv, wi
+    emit("select_k_path", cases=out, launches=total,
+         check="indices and values equal to the stable key sort, exactly")
+    return v_radix, v_ins, v_desc, total
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the selection kernels' numbers at their paths' shapes
+# ---------------------------------------------------------------------------
+
+
+def topk_numbers(db, q, v_radix, v_ins, v_desc, launches, parity_errs):
+    """Each selection kernel at its path's shape: held against its plain
+    version, timed beside it, beside a one-call PyTorch yardstick (timed
+    here only) and beside its bound. The kNN radix route's chunk is built
+    from the path's own data, and pairwise_tile, radix_threshold and
+    radix_emit are each held against their plain versions on it. Returns
+    the kernels' rows and pairwise_tile's numbers at that chunk."""
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.linalg import contractions as tc
+    from raft_tpu_torch.matrix import radix_select as trs
+    from raft_tpu_torch.matrix import topk_insert as tti
+    from raft_tpu_torch.neighbors import fused_topk as tft
+    from raft_tpu_torch.neighbors import knn_plan
+
+    table = []
+
+    def row(name, ms, plain_ms, b, by, library_ms, library_call, err,
+            **extra):
+        spec = kernels.REGISTRY[name]
+        table.append({"name": name, "route": "cuda",
+                      "source": f"raft_tpu_torch/{spec.source}",
+                      "replaces": spec.replaces, "launches": launches[name],
+                      "max_abs_err": max(err, parity_errs[name]), "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                      "library_ms": library_ms,
+                      "library_call": library_call, "parity": "pass",
+                      **extra})
+
+    with torch.no_grad():
+        # fused top-k at the kNN shape, tier 'high', k = 64 (and 256)
+        nq, n, d = q.shape[0], db.shape[0], db.shape[1]
+        xs, ys = tc._side(q, "high"), tc._side(db, "high")
+        pq = side_rows(xs, slice(0, PLAIN_Q))
+        scale = ((q[:PLAIN_Q].double() ** 2).sum(1)
+                 + (db.double() ** 2).sum(1).max()).float()
+        per_k = {}
+        for k in (64, 256):
+            got = tft._fused_topk("high", "l2", xs, ys, nq, n, d, k)
+            want = tft._fused_topk_plain("high", "l2", pq, ys, PLAIN_Q, n,
+                                         d, k)
+            bad, err = topk_lists_agree(
+                (got[0][:PLAIN_Q], got[1][:PLAIN_Q]), want,
+                plain_rows("high", "l2", pq, ys, n, d), scale, REL,
+                f"fused_topk k={k} at the kNN shape")
+            del got, want
+            b, by = bound("high", nq, n, d, 8 * nq * k)
+            per_k[k] = dict(
+                ms=cuda_ms(lambda: tft._fused_topk("high", "l2", xs, ys, nq,
+                                                   n, d, k), 2),
+                plain_ms_at_plain_q=cuda_ms(
+                    lambda: tft._fused_topk_plain("high", "l2", pq, ys,
+                                                  PLAIN_Q, n, d, k), 2),
+                library_ms=cuda_ms(lambda: cdist_topk(q, db, k), 1),
+                bound_ms=b, bound_by=by, differing_indices=bad,
+                max_abs_err=err)
+            torch.cuda.empty_cache()
+        # the non-split kernel's tiers ('default', 'highest'), k = 64
+        other_tiers = {}
+        for tier in ("default", "highest"):
+            txs, tys = tc._side(q, tier), tc._side(db, tier)
+            tpq = side_rows(txs, slice(0, PLAIN_Q))
+            got = tft._fused_topk(tier, "l2", txs, tys, nq, n, d, 64)
+            want = tft._fused_topk_plain(tier, "l2", tpq, tys, PLAIN_Q, n,
+                                         d, 64)
+            bad, err = topk_lists_agree(
+                (got[0][:PLAIN_Q], got[1][:PLAIN_Q]), want,
+                plain_rows(tier, "l2", tpq, tys, n, d), scale, REL,
+                f"fused_topk {tier} at the kNN shape")
+            del got, want
+            b, by = bound(tier, nq, n, d, 8 * nq * 64)
+            other_tiers[tier] = dict(
+                ms=cuda_ms(lambda: tft._fused_topk(tier, "l2", txs, tys, nq,
+                                                   n, d, 64), 2),
+                plain_ms_at_plain_q=cuda_ms(
+                    lambda: tft._fused_topk_plain(tier, "l2", tpq, tys,
+                                                  PLAIN_Q, n, d, 64), 2),
+                bound_ms=b, bound_by=by, differing_indices=bad,
+                max_abs_err=err)
+            del txs, tys, tpq
+            torch.cuda.empty_cache()
+        # where the time goes: the same tile with a 1-wide epilogue (the
+        # fused argmin), and the top-k at smaller k
+        breakdown = dict(
+            argmin_same_shape_ms=cuda_ms(
+                lambda: tc._fused_argmin("high", "l2", xs, ys, nq, n, d), 2),
+            topk_ms_by_k={kk: cuda_ms(lambda: tft._fused_topk(
+                "high", "l2", xs, ys, nq, n, d, kk), 2) for kk in (1, 16)})
+        k64 = per_k[64]
+        row("fused_topk", k64["ms"], k64["plain_ms_at_plain_q"],
+            k64["bound_ms"], k64["bound_by"], k64["library_ms"],
+            "torch.cdist + torch.topk(largest=False), chunked over 131,072 "
+            "database rows, then a merge", k64["max_abs_err"],
+            shape=[nq, n, d], k=64, tier="high",
+            plain_q=PLAIN_Q, plain_note=f"plain version timed at {PLAIN_Q} "
+            f"queries (the full [{nq}, {n}] f32 matrix and its sort do not "
+            "fit); held against the kernel on those rows",
+            differing_indices=k64["differing_indices"], k256=per_k[256],
+            other_tiers=other_tiers, breakdown=breakdown)
+        del ys, pq
+
+        # the kNN radix route's chunk, built from the path's own data as
+        # _knn_chunked builds it: the queries against the first chunk of
+        # the database at 'high', then the sortable keys of that block
+        ck = KNN_KS[-1]
+        cw = knn_plan(nq, n, ck)[1]
+        cys = tc._side(db[:cw].contiguous(), "high")
+        cd = tc._pairwise_tile("high", "l2", xs, cys, nq, cw, d)
+        cscale = ((q.double() ** 2).sum(1)
+                  + (db[:cw].double() ** 2).sum(1).max()).float()
+        cerr = (cd - tc._pairwise_plain("high", "l2", xs, cys, nq, cw,
+                                        d)).abs()
+        check(bool((cerr <= REL * cscale[:, None] + 1e-6).all()),
+              f"pairwise_tile at the kNN chunk: max err {float(cerr.max())}")
+        cerr = float(cerr.max())
+        ckeys = trs._to_key(cd, True).contiguous()
+        ct, cn = trs._radix_threshold(ckeys, ck)
+        exact_equal((ct, cn), trs._threshold_plain(ckeys, ck),
+                    "radix_threshold at the kNN chunk")
+        exact_equal((trs._radix_emit(ckeys, ct, cn, ck),),
+                    (trs._emit_plain(ckeys, ct, cn, ck),),
+                    "radix_emit at the kNN chunk")
+        pb, pby = bound("high", nq, cw, d, 4 * nq * cw)
+        knn_chunk = {
+            "pairwise_tile": dict(
+                shape=[nq, cw, d], tier="high",
+                launches=launches["pairwise_tile"], max_abs_err=cerr,
+                ms=cuda_ms(lambda: tc._pairwise_tile("high", "l2", xs, cys,
+                                                     nq, cw, d), 5),
+                plain_ms=cuda_ms(lambda: tc._pairwise_plain(
+                    "high", "l2", xs, cys, nq, cw, d), 3),
+                bound_ms=pb, bound_by=pby,
+                library_ms=cuda_ms(lambda: torch.cdist(q, db[:cw]), 3)),
+            "radix_threshold": dict(
+                shape=[nq, cw], k=ck,
+                ms=cuda_ms(lambda: trs._radix_threshold(ckeys, ck), 5),
+                plain_ms=cuda_ms(lambda: trs._threshold_plain(ckeys, ck), 3),
+                bound_ms=(4 * nq * cw + 8 * nq) / PEAK_BYTES * 1e3,
+                bound_by="bytes",
+                library_ms=cuda_ms(lambda: torch.kthvalue(ckeys, ck, dim=1),
+                                   3)),
+            "radix_emit": dict(
+                shape=[nq, cw], k=ck,
+                ms=cuda_ms(lambda: trs._radix_emit(ckeys, ct, cn, ck), 5),
+                plain_ms=cuda_ms(lambda: trs._emit_plain(ckeys, ct, cn, ck),
+                                 3),
+                bound_ms=(4 * nq * cw + 4 * nq * ck) / PEAK_BYTES * 1e3,
+                bound_by="bytes",
+                library_ms=cuda_ms(lambda: torch.topk(cd, ck, dim=1,
+                                                      largest=False), 3))}
+        del xs, cys, cd, ckeys, ct, cn
+        torch.cuda.empty_cache()
+
+        # insertion select at the WARPSORT_FILTERED shape
+        ir, ic, ik = v_ins.shape[0], v_ins.shape[1], SELECT_INSERT[2]
+        for v, what in ((v_ins, "random"), (v_desc, "descending")):
+            exact_equal(tti._topk_insert(v, ik, True),
+                        tti._insert_plain(v, ik, True),
+                        f"topk_insert {what} at the select shape")
+        t_bytes = (4 * ir * ic + 8 * ir * ik) / PEAK_BYTES * 1e3
+        row("topk_insert", cuda_ms(lambda: tti._topk_insert(v_ins, ik, True),
+                                   5),
+            cuda_ms(lambda: tti._insert_plain(v_ins, ik, True), 3),
+            t_bytes, "bytes",
+            cuda_ms(lambda: torch.topk(v_ins, ik, largest=False), 5),
+            "torch.topk(v, k, largest=False)", 0.0, shape=[ir, ic], k=ik,
+            descending_rows_ms=cuda_ms(
+                lambda: tti._topk_insert(v_desc, ik, True), 3))
+
+        # radix threshold and emit at the select_k_bars shape; the kNN
+        # chunk's numbers (above) go beside them
+        rr, rc, rk = SELECT_RADIX
+        keys = trs._to_key(v_radix, True)
+        t, ntie = trs._radix_threshold(keys, rk)
+        exact_equal((t, ntie), trs._threshold_plain(keys, rk),
+                    "radix_threshold at the select shape")
+        exact_equal((trs._radix_emit(keys, t, ntie, rk),),
+                    (trs._emit_plain(keys, t, ntie, rk),),
+                    "radix_emit at the select shape")
+        key_bytes = 4 * rr * rc
+        row("radix_threshold",
+            cuda_ms(lambda: trs._radix_threshold(keys, rk), 5),
+            cuda_ms(lambda: trs._threshold_plain(keys, rk), 3),
+            (key_bytes + 8 * rr) / PEAK_BYTES * 1e3, "bytes",
+            cuda_ms(lambda: torch.kthvalue(keys, rk, dim=1), 3),
+            "torch.kthvalue(keys, k, dim=1)", 0.0, shape=[rr, rc], k=rk,
+            knn_chunk_shape=knn_chunk["radix_threshold"])
+        row("radix_emit", cuda_ms(lambda: trs._radix_emit(keys, t, ntie, rk),
+                                  5),
+            cuda_ms(lambda: trs._emit_plain(keys, t, ntie, rk), 3),
+            (key_bytes + 4 * rr * rk) / PEAK_BYTES * 1e3, "bytes",
+            cuda_ms(lambda: torch.topk(v_radix, rk, largest=False), 3),
+            "torch.topk(v, k, largest=False): threshold and emission "
+            "together", 0.0, shape=[rr, rc], k=rk,
+            knn_chunk_shape=knn_chunk["radix_emit"])
+    return table, knn_chunk["pairwise_tile"]
+
+
+def cdist_topk(q, db, k, rows=131072):
+    """The library yardstick of the fused top-k: cdist and topk over
+    database chunks, then a topk over the pooled candidates."""
+    import torch
+
+    pv, pi = [], []
+    for off in range(0, db.shape[0], rows):
+        v, i = torch.topk(torch.cdist(q, db[off:off + rows]), k, dim=1,
+                          largest=False)
+        pv.append(v)
+        pi.append(i + off)
+    v, i = torch.topk(torch.cat(pv, 1), k, dim=1, largest=False)
+    return v, torch.gather(torch.cat(pi, 1), 1, i)
 
 
 def kernel_numbers(x, c, ops, parity_errs, launches):
@@ -590,10 +1132,26 @@ def main():
          spill_bytes=sum(map(int, re.findall(r"(\d+) bytes spill", ptxas))))
 
     parity_errs = parity(dev)
+    parity_errs.update(topk_parity(dev))
     x, c, ops, launches = main_path(res, dev)
     small_fit_matches_cpu(res, dev)
     pairwise_phase(res, dev)
     table = kernel_numbers(x, c, ops, parity_errs, launches)
+    del x, c, ops
+    torch.cuda.empty_cache()
+    db, q, knn_launches, _ = knn_path(res, dev)
+    v_radix, v_ins, v_desc, select_launches = select_path(res, dev)
+    path_launches = {n: knn_launches.get(n, 0) + select_launches.get(n, 0)
+                     for n in knn_launches}
+    for name in ("fused_topk", "topk_insert", "radix_threshold",
+                 "radix_emit"):
+        check(path_launches[name] > 0, f"kNN and select_k paths never "
+              f"launched {name}")
+    topk_table, pairwise_chunk = topk_numbers(db, q, v_radix, v_ins, v_desc,
+                                              path_launches, parity_errs)
+    next(r for r in table if r["name"] == "pairwise_tile")[
+        "knn_chunk_shape"] = pairwise_chunk
+    table += topk_table
     RECORD["kernels"] = table
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -18,6 +18,9 @@ Ported so far (one device):
 linalg.contractions : pairwise tile, fused argmin, fused Lloyd pass
 distance            : pairwise_distance (expanded metrics), fused_l2_nn_argmin
 cluster             : k-means (Lloyd, k-means|| init)
+neighbors           : brute-force kNN (fused top-k, radix and scan routes)
+matrix              : select_k (radix, insertion, tiled, stream, direct),
+                      argmin, argmax
 
 The package imports neither ``jax`` nor ``raft_tpu``.
 """

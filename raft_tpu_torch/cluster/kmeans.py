@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.guards import ConvergenceError, ConvergenceReport
-from raft_tpu_torch.core.resources import default_resources
+from raft_tpu_torch.core.resources import as_tensor
 from raft_tpu_torch.distance.pairwise import DistanceType, pairwise_distance
 from raft_tpu_torch.linalg.contractions import (fused_l2_argmin_pallas,
                                                 fused_lloyd_pallas,
@@ -64,10 +64,8 @@ class KMeansParams:
 
 
 def _as_data(x, res) -> torch.Tensor:
-    """A tensor stays on its device; anything else goes to the handle's
-    device (``cuda:0`` by default)."""
-    if not isinstance(x, torch.Tensor):
-        x = torch.as_tensor(np.asarray(x), device=default_resources(res).device)
+    """:func:`~raft_tpu_torch.core.resources.as_tensor`, as f32."""
+    x = as_tensor(x, res)
     if not x.is_floating_point():
         raise TypeError(f"expected floating data, got {x.dtype}")
     return x.to(torch.float32).contiguous()

@@ -22,7 +22,7 @@ import torch
 from raft_tpu_torch.random.rng_state import RngState
 
 __all__ = ["DeviceResources", "DeviceUnavailableError", "device_resources",
-           "default_resources", "resolve_device"]
+           "default_resources", "resolve_device", "as_tensor"]
 
 DEFAULT_DEVICE = "cuda:0"
 
@@ -96,3 +96,15 @@ def default_resources(res: Optional[DeviceResources] = None
         if dev not in _handles:
             _handles[dev] = DeviceResources(dev)
         return _handles[dev]
+
+
+def as_tensor(x, res: Optional[DeviceResources] = None) -> torch.Tensor:
+    """The input rule of every entry point: a tensor stays on its device;
+    anything else (a numpy array, a list) goes to the handle's device,
+    ``cuda:0`` by default, which raises :class:`DeviceUnavailableError`
+    without CUDA."""
+    if isinstance(x, torch.Tensor):
+        return x
+    import numpy as np
+
+    return torch.as_tensor(np.asarray(x), device=default_resources(res).device)

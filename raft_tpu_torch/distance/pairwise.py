@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from raft_tpu_torch.core.guards import resolve_guard_mode
+from raft_tpu_torch.core.resources import as_tensor
 from raft_tpu_torch.linalg.contractions import (fused_l2_argmin_pallas,
                                                 pairwise_l2_pallas,
                                                 pairwise_pallas)
@@ -55,8 +56,8 @@ _UNEXPANDED = {DistanceType.L2Unexpanded, DistanceType.L2SqrtUnexpanded,
                DistanceType.LpUnexpanded, DistanceType.HammingUnexpanded}
 
 
-def _as2d(a) -> torch.Tensor:
-    a = torch.as_tensor(a)
+def _as2d(a, res) -> torch.Tensor:
+    a = as_tensor(a, res)
     return a[None, :] if a.ndim == 1 else a
 
 
@@ -92,13 +93,13 @@ def pairwise_distance(res, x, y=None,
                       guard_mode: Optional[str] = None) -> torch.Tensor:
     """Full m x n distance matrix between rows of x [m, k] and y [n, k];
     ``y=None`` means y = x, and then the diagonal is exactly zero for
-    every true metric (not for ``InnerProduct``). ``res`` is accepted
-    for API parity; the tensors' device decides where it runs. ``p``
-    (Minkowski) belongs to a metric not ported yet."""
+    every true metric (not for ``InnerProduct``). A tensor runs on its
+    device; an array goes to ``res``'s device (``cuda:0`` by default).
+    ``p`` (Minkowski) belongs to a metric not ported yet."""
     resolve_guard_mode(guard_mode, "distance.pairwise_distance")
-    x = _as2d(x)
+    x = _as2d(x, res)
     self_dist = y is None
-    y = x if self_dist else _as2d(y)
+    y = x if self_dist else _as2d(y, res)
     if x.shape[1] != y.shape[1]:
         raise ValueError(f"feature dims differ: {x.shape[1]} vs {y.shape[1]}")
     d = _dispatch_metric(x, y, metric, sqrt)
@@ -111,6 +112,7 @@ def pairwise_distance(res, x, y=None,
 @with_matmul_precision
 def fused_l2_nn_argmin(res, x, y, sqrt: bool = False):
     """1-NN under L2 without materialising distances: ``(min_dist [m],
-    argmin [m])``. CUDA kernel: ``csrc/fused_argmin.cu``."""
-    val, idx = fused_l2_argmin_pallas(_as2d(x), _as2d(y))
+    argmin [m])``. An array goes to ``res``'s device, as in
+    :func:`pairwise_distance`. CUDA kernel: ``csrc/fused_argmin.cu``."""
+    val, idx = fused_l2_argmin_pallas(_as2d(x, res), _as2d(y, res))
     return (torch.sqrt(val) if sqrt else val), idx

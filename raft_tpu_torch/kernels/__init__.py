@@ -84,6 +84,54 @@ REGISTRY: Dict[str, KernelSpec] = {
             replaces="raft_tpu/linalg/contractions.py:931",
             parity_test="tests/test_torch_contractions.py"
                         "::test_fused_lloyd_matches_reference"),
+        KernelSpec(
+            name="fused_topk",
+            source="csrc/fused_topk.cu",
+            symbol="raft_fused_topk",
+            # tier, metric, operands..., m, n, kd, k, splits, lists,
+            # out_v, out_i, stream
+            argtypes=(_I, _I) + _OPERANDS + (_I, _I, _I, _I, _I, _P, _P, _P,
+                                             _P),
+            plain="raft_tpu_torch.neighbors.fused_topk._fused_topk_plain",
+            ports="raft_tpu/neighbors/fused_topk.py:_topk_kernel, "
+                  "_topk_kernel_split",
+            replaces="raft_tpu/neighbors/fused_topk.py:102",
+            parity_test="tests/test_torch_knn.py"
+                        "::test_knn_fused_matches_reference"),
+        KernelSpec(
+            name="topk_insert",
+            source="csrc/topk_insert.cu",
+            symbol="raft_topk_insert",
+            # dtype, select_min, v, ld, rows, len, k, out_v, out_i, stream
+            argtypes=(_I, _I, _P, _L, _I, _I, _I, _P, _P, _P),
+            plain="raft_tpu_torch.matrix.topk_insert._insert_plain",
+            ports="raft_tpu/matrix/topk_insert.py:_insert_kernel",
+            replaces="raft_tpu/matrix/topk_insert.py:48",
+            parity_test="tests/test_torch_select_k.py"
+                        "::test_insert_select_matches_reference"),
+        KernelSpec(
+            name="radix_threshold",
+            source="csrc/radix_threshold.cu",
+            symbol="raft_radix_threshold",
+            # keys, ld, rows, len, k, splits, hist, t, ntie, stream
+            argtypes=(_P, _L, _I, _I, _I, _I, _P, _P, _P, _P),
+            plain="raft_tpu_torch.matrix.radix_select._threshold_plain",
+            ports="raft_tpu/matrix/radix_select.py:_threshold_kernel",
+            replaces="raft_tpu/matrix/radix_select.py:235",
+            parity_test="tests/test_torch_radix_select.py"
+                        "::test_radix_ranks_match_reference"),
+        KernelSpec(
+            name="radix_emit",
+            source="csrc/radix_emit.cu",
+            symbol="raft_radix_emit",
+            # keys, ld, rows, len, k, t, ntie, splits, cnt, out, stream
+            argtypes=(_P, _L, _I, _I, _I, _P, _P, _I, _P, _P, _P),
+            plain="raft_tpu_torch.matrix.radix_select._emit_plain",
+            ports="raft_tpu/matrix/radix_select.py:_emit_kernel, "
+                  "_emit_chunk_body",
+            replaces="raft_tpu/matrix/radix_select.py:332",
+            parity_test="tests/test_torch_radix_select.py"
+                        "::test_radix_ranks_match_reference"),
     )
 }
 

@@ -7,8 +7,9 @@ a plain C interface::
          -Xcompiler -fPIC -o build/kernels/<kernel>-<hash>.so csrc/<kernel>.cu
 
 into ``build/kernels/`` beside the package (listed in ``.gitignore``).
-The file name carries a hash of the sources and flags, so an edited
-source is never served by a stale library. :func:`build` starts one
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is never
+served by a stale library. :func:`build` starts one
 ``nvcc`` per missing library, all at once, and waits for them; a failed
 compile raises :class:`KernelBuildError` with the compiler's output.
 """
@@ -27,7 +28,7 @@ from typing import Dict, Iterable, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-COMMON_HEADER = PACKAGE_DIR / "csrc" / "common.cuh"
+CSRC_DIR = PACKAGE_DIR / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -58,10 +59,13 @@ def find_nvcc() -> str:
 
 
 def library_path(spec) -> Path:
+    """The library of ``spec``, named by a hash of its source, every
+    shared header in ``csrc/`` and the flags."""
     src = PACKAGE_DIR / spec.source
     h = hashlib.sha256()
-    for part in (src.read_bytes(), COMMON_HEADER.read_bytes(),
-                 " ".join(NVCC_FLAGS).encode()):
+    headers = sorted(CSRC_DIR.glob("*.cuh"))
+    for part in ([src.read_bytes()] + [p.read_bytes() for p in headers]
+                 + [" ".join(NVCC_FLAGS).encode()]):
         h.update(part)
     return BUILD_DIR / f"{spec.name}-{h.hexdigest()[:16]}.so"
 

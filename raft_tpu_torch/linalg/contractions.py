@@ -18,7 +18,8 @@ fused_lloyd_prepared
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
 plain version, which computes the same function with the same tie, NaN
 and padding rules. There is no fallback from the kernel to the plain
-version.
+version. A non-tensor input (a numpy array) goes to ``cuda:0``, which
+raises without CUDA.
 
 Operands follow the precision tier in effect (``util/precision.py``):
 at ``'high'`` each f32 side is split once into bf16 hi/lo halves plus
@@ -44,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch import kernels
+from raft_tpu_torch.core.resources import as_tensor
 from raft_tpu_torch.matrix.epilogue import assign_onehot, iota_argmin
 from raft_tpu_torch.util.math import cdiv
 from raft_tpu_torch.util.precision import current_mode, with_matmul_precision
@@ -52,8 +54,9 @@ _TIER_CODE = {"default": 0, "high": 1, "highest": 2}
 _METRIC_CODE = {"l2": 0, "cosine": 1, "inner": 2}
 _COSINE_EPS = 1e-30
 
-# Row tile of the kernels (csrc/common.cuh BM).
+# Row and column tiles of the kernels (csrc/common.cuh BM, BN).
 TILE_M = 128
+TILE_N = 128
 
 # Persistent grid of the Lloyd pass: two blocks per SM of a 132-SM H100,
 # fixed by the shapes and never by the card, so the order of the sums (and
@@ -74,7 +77,7 @@ Side = namedtuple("Side", "v0 v1 norms")
 
 
 def _as_f32(a) -> torch.Tensor:
-    a = torch.as_tensor(a)
+    a = as_tensor(a)
     if not a.is_floating_point():
         raise TypeError(f"expected a floating tensor, got {a.dtype}")
     return a.to(torch.float32).contiguous()

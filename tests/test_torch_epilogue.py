@@ -89,3 +89,51 @@ def test_masked_fold_matches_reference(seed):
         np.testing.assert_array_equal(n(tstate[1]), n(jstate[1]))
     # the folded result is the global first minimum on NaN-free tiles
     np.testing.assert_array_equal(n(tstate[1])[:, 0], d.argmin(1))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_row_min_arg_matches_reference(seed):
+    d = _tile(seed, nan=False)
+    col = np.broadcast_to(np.arange(d.shape[1], dtype=np.int32) + 100,
+                          d.shape).copy()
+    jm, ji = jep.row_min_arg(jnp.asarray(d), jnp.asarray(col))
+    tm, ti = tep.row_min_arg(t(d), t(col))
+    np.testing.assert_array_equal(n(tm), n(jm))
+    np.testing.assert_array_equal(n(ti), n(ji))
+
+
+@pytest.mark.parametrize("tn,sw,cols", [(1024, None, 5000), (1024, 256, 300),
+                                        (2048, 512, 100000), (384, None, 900),
+                                        (1000, 0, 77), (1024, 384, 5000),
+                                        (1024, -128, 5000)])
+def test_tile_knobs_match_reference(tn, sw, cols):
+    try:
+        want = jep.resolve_tn_sw(tn, sw, cols)
+    except ValueError:
+        with pytest.raises(ValueError):
+            tep.resolve_tn_sw(tn, sw, cols)
+        return
+    assert tep.resolve_tn_sw(tn, sw, cols) == want
+    for k in (1, 128, 129, 256):
+        assert tep.best_width(k) == jep.best_width(k)
+    assert (tep.LANES, tep.MAX_K, tep.DRAIN_SW) == \
+        (jep.LANES, jep.MAX_K, jep.DRAIN_SW)
+
+
+@pytest.mark.parametrize("use_radix", [False, True])
+def test_drain_ref_and_masked_topk_match_reference(use_radix):
+    """``insert_drain_ref`` (NaN as +inf, first index on ties) and the
+    masked top-k of the chunked kNN and IVF probe, on both selects."""
+    d = _tile(4, rows=6, cols=9000)
+    d[1, ::2] = np.inf
+    valid = np.ones_like(d, bool)
+    valid[:, 8500:] = False
+    jv, ji = jep.masked_topk(jnp.asarray(d), jnp.asarray(valid), 40,
+                             use_radix)
+    tv, ti = tep.masked_topk(t(d), t(valid), 40, use_radix)
+    np.testing.assert_array_equal(n(ti), n(ji))
+    np.testing.assert_array_equal(n(tv), n(jv))
+    jv, ji = jep.insert_drain_ref(jnp.asarray(d), 40)
+    tv, ti = tep.insert_drain_ref(t(d), 40)
+    np.testing.assert_array_equal(n(ti), n(ji))
+    np.testing.assert_array_equal(n(tv), n(jv))

@@ -8,8 +8,10 @@ reference package, so it also runs where only PyTorch is installed:
 Tolerance: kernel and plain version form the same products at each tier
 and differ only in f32 accumulation order, so distances agree to 1e-5 of
 (|x|² + |y|²) and labels agree except at near-ties; counts are exact and
-two runs of a kernel are bitwise equal. chip_smoke.py runs the same
-checks with ties, NaN rows and padded rows, and at full size.
+two runs of a kernel are bitwise equal. The selection kernels (top-k
+insertion, radix threshold and emission) are exact: their output equals
+the plain version's, bit for bit. chip_smoke.py runs the same checks
+with ties, NaN rows and padded rows, and at full size.
 """
 
 import pytest
@@ -17,6 +19,9 @@ import torch
 
 from raft_tpu_torch import kernels
 from raft_tpu_torch.linalg import contractions as tc
+from raft_tpu_torch.matrix import radix_select as trs
+from raft_tpu_torch.matrix import topk_insert as tti
+from raft_tpu_torch.neighbors import fused_topk as tft
 
 TIERS = ("default", "high", "highest")
 
@@ -41,7 +46,8 @@ def _run(name, tier, xs, ys, m, n, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tier", TIERS)
-@pytest.mark.parametrize("name", sorted(kernels.REGISTRY))
+@pytest.mark.parametrize("name", ["fused_argmin", "fused_lloyd",
+                                  "pairwise_tile"])
 def test_kernel_matches_plain_on_card(card, name, tier):
     m, n, k = 333, 177, 50                       # ragged in every dim
     g = torch.Generator(device=card).manual_seed(11)
@@ -105,3 +111,72 @@ def test_lloyd_many_row_tiles_per_block(card, tier):
     if bool(same.all()):
         assert torch.equal(got[1], want[1])
         assert bool(((got[0] - want[0]).abs() <= tol).all())
+
+
+def _counted(name, fn):
+    before = kernels.launch_counts()[name]
+    out = fn()
+    assert kernels.launch_counts()[name] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "cosine", "inner"])
+@pytest.mark.parametrize("tier", TIERS)
+def test_fused_topk_matches_plain_on_card(card, tier, metric):
+    m, n, kd, k = 300, 1100, 37, 50               # ragged, several splits
+    g = torch.Generator(device=card).manual_seed(13)
+    x = torch.randn(m, kd, generator=g, device=card)
+    y = torch.randn(n, kd, generator=g, device=card)
+    y[900] = y[3]                                 # tie: column 3 first
+    x[1] = float("nan")                           # no candidate at all
+    xs, ys = tc._side(x, tier), tc._side(y, tier)
+    got = _counted("fused_topk", lambda: tft._fused_topk(
+        tier, metric, xs, ys, m, n, kd, k))
+    again = tft._fused_topk(tier, metric, xs, ys, m, n, kd, k)
+    want = tft._fused_topk_plain(tier, metric, xs, ys, m, n, kd, k)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert got[1][1].tolist() == [0] * k
+    same = got[1] == want[1]
+    assert float(same.float().mean()) >= 0.99
+    scale = float(((x[~x.isnan().any(1)] ** 2).sum(1).max()
+                   + (y * y).sum(1).max()))
+    fin = torch.isfinite(want[0])
+    assert float((got[0] - want[0]).abs()[fin].max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_topk_insert_matches_plain_on_card(card, dtype, select_min):
+    g = torch.Generator(device=card).manual_seed(14)
+    v = torch.randn(77, 5003, generator=g, device=card).to(dtype)
+    v[:, 100:200] = v[:, 7:8]                     # ties
+    v[3] = float("nan")
+    v[4, :-10] = float("inf") if select_min else float("-inf")
+    v[5] = torch.sort(v[5].float(), descending=select_min).values.to(dtype)
+    for k in (1, 64, 256):
+        got = _counted("topk_insert", lambda: tti._topk_insert(
+            v, k, select_min))
+        want = tti._insert_plain(v, k, select_min)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(3, 300001), (700, 5000)])
+def test_radix_kernels_match_plain_on_card(card, rows, cols):
+    g = torch.Generator(device=card).manual_seed(15)
+    v = torch.randn(rows, cols, generator=g, device=card)
+    v[0, 50:5000] = -3.0                          # a long tie run
+    v[-1] = 1.0                                   # all equal
+    keys = trs._to_key(v, True)
+    for k in (1, 77, 4096, cols):
+        t, ntie = _counted("radix_threshold",
+                           lambda: trs._radix_threshold(keys, k))
+        pt, pntie = trs._threshold_plain(keys, k)
+        assert torch.equal(t, pt) and torch.equal(ntie, pntie)
+        idx = _counted("radix_emit", lambda: trs._radix_emit(keys, t, ntie,
+                                                             k))
+        assert torch.equal(idx, trs._emit_plain(keys, pt, pntie, k))

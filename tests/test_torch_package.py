@@ -30,7 +30,8 @@ def _run(code, **env):
 
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, raft_tpu_torch, raft_tpu_torch.cluster, "
-            "raft_tpu_torch.distance, raft_tpu_torch.interop; "
+            "raft_tpu_torch.distance, raft_tpu_torch.interop, "
+            "raft_tpu_torch.matrix, raft_tpu_torch.neighbors; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'raft_tpu.')) or m == 'raft_tpu'))")
     out = _run(code)
@@ -85,12 +86,18 @@ def test_launch_counts_reset_and_start_at_zero():
 
 def test_cpu_tensors_never_count_a_launch():
     from raft_tpu_torch.linalg import contractions as tc
+    from raft_tpu_torch.matrix import SelectAlgo, select_k
+    from raft_tpu_torch.neighbors import knn
 
     kernels.reset_launch_counts()
     x = torch.randn(20, 5, generator=torch.Generator().manual_seed(0))
     tc.fused_lloyd_pallas(x, x[:3])
     tc.fused_l2_argmin_pallas(x, x[:3])
     tc.pairwise_l2_pallas(x, x[:3])
+    knn(None, x, x[:3], 4)
+    v = torch.randn(3, 9000, generator=torch.Generator().manual_seed(1))
+    select_k(None, v, 40)                                   # radix
+    select_k(None, v, 40, algo=SelectAlgo.WARPSORT_FILTERED)  # insert
     assert set(kernels.launch_counts().values()) == {0}
 
 
@@ -109,6 +116,51 @@ def test_device_resources_refuses_cpu_fallback():
     g1, g2 = res.generator(), res.generator()
     assert not torch.equal(torch.rand(4, generator=g1),
                            torch.rand(4, generator=g2))
+
+
+@pytest.mark.parametrize("entry", ["pairwise_distance", "fused_l2_nn_argmin",
+                                   "knn", "select_k", "radix_select_k",
+                                   "insert_select", "knn_fused",
+                                   "insert_drain_ref"])
+def test_array_inputs_go_to_the_handle_device(entry):
+    """An array with no handle goes to cuda:0: without CUDA that raises
+    instead of running on the host; a CPU handle runs it here. The entry
+    points that take no handle run on the host when given CPU tensors."""
+    import numpy as np
+
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.distance import fused_l2_nn_argmin, pairwise_distance
+    from raft_tpu_torch.matrix import select_k
+    from raft_tpu_torch.matrix.epilogue import insert_drain_ref
+    from raft_tpu_torch.matrix.radix_select import radix_select_k
+    from raft_tpu_torch.matrix.topk_insert import insert_select
+    from raft_tpu_torch.neighbors import knn
+    from raft_tpu_torch.neighbors.fused_topk import knn_fused
+
+    a = np.arange(24, dtype=np.float32).reshape(6, 4)
+
+    def arr(r):
+        """No handle: the numpy array; a handle: a tensor on its device."""
+        return a if r is None else torch.from_numpy(a).to(r.device)
+
+    call = {"pairwise_distance": lambda r: pairwise_distance(r, a),
+            "fused_l2_nn_argmin": lambda r: fused_l2_nn_argmin(r, a, a[:2]),
+            "knn": lambda r: knn(r, a, a[:3], 2),
+            "select_k": lambda r: select_k(r, a, 2),
+            "radix_select_k": lambda r: radix_select_k(arr(r), 2),
+            "insert_select": lambda r: insert_select(arr(r), 2),
+            "knn_fused": lambda r: knn_fused(arr(r)[:3], arr(r), 2),
+            "insert_drain_ref": lambda r: insert_drain_ref(arr(r), 2)}[entry]
+    if torch.cuda.is_available():
+        out = call(None)
+        first = out[0] if isinstance(out, tuple) else out
+        assert first.device == torch.device("cuda", 0)
+        return
+    with pytest.raises(rt.DeviceUnavailableError):
+        call(None)
+    out = call(rt.device_resources("cpu"))
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.device.type == "cpu"
 
 
 def test_malformed_precision_knob_fails_loudly():
