@@ -16,11 +16,20 @@ counts set to 0 just before it and read just after:
   k = 64 and k = 256 (the fused route), k = 1024 (the radix route);
 - select_k: AUTO on 64 x 2^20 f32, k = 2048 (radix), and
   WARPSORT_FILTERED on 1024 x 65,536 f32, k = 64 (insertion), on
-  random and on descending rows.
+  random and on descending rows;
+- BASELINE config 4: the R-MAT graph (scale 20, 10M edges, about 19M
+  stored entries) built on the card by the port's generator, one SpMV,
+  one SpMM at k = 16 and the fixed 3-restart Lanczos (52 steps);
+- spectral partition of a planted 4-block graph of the same size, then
+  both analyzers: the blocks must be recovered (agreement >= 0.99, edge
+  cut within 1% of the planted one) with a converged Lanczos.
 
+The CSR kernels are first held against their plain versions on a hub
+row of 100,000 entries, empty rows, an empty matrix, a stored zero
+against inf, a padded CSR, a non-square matrix, f64 and k = 1 to 64.
 It then holds every kernel against its plain version at the shapes
 those paths give it (the kNN radix route's 4096 x 32,768 chunk of
-distances included) and times it there. Each
+distances and config 4's graph included) and times it there. Each
 phase prints one JSON line; the line before the last is the card's name
 and power limit from ``nvidia-smi``, the last is the result. Longer
 output (compiler logs, all numbers) goes to
@@ -52,6 +61,14 @@ REL = 1e-5            # bf16x3 / f32 agreement between two f32 summation orders
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# BASELINE config 4 (bench_prims.py:877-893): R-MAT scale 20, 10M edges
+RMAT_SCALE, RMAT_EDGES = 20, 10_000_000
+SPMM_K = 16                                # bench_prims.py:684
+SPARSE_KS = (1, 2, 31, 32, 33, 64)         # SpMM widths held to plain
+SPARSE_REL = 2e-5      # x (|A|.|x|)_row: two f32 summation orders
+SPARSE_REL_F64 = 1e-12  # the same in f64; an f32 sum would miss by ~1e-7
+# planted partition of config-4 size: 4 blocks, 98% of edges inside
+PLANTED_BLOCKS, PLANTED_EDGES, PLANTED_INSIDE = 4, 9_500_000, 0.98
 OUT_DIR = "chiprun_out"
 RECORD = {}
 
@@ -985,6 +1002,18 @@ def cdist_topk(q, db, k, rows=131072):
     return v, torch.gather(torch.cat(pi, 1), 1, i)
 
 
+CDIST_ROWS = 65536
+
+
+def cdist_argmin(x, y, rows=CDIST_ROWS):
+    """The library yardstick of the fused argmin at many centroids:
+    torch.cdist over row chunks of x, then argmin."""
+    import torch
+
+    return torch.cat([torch.cdist(x[off:off + rows], y).argmin(1)
+                      for off in range(0, x.shape[0], rows)])
+
+
 def kernel_numbers(x, c, ops, parity_errs, launches):
     """Each kernel at the main-path shapes, at every tier: held against
     its plain version, then timed beside it, beside a one-call PyTorch
@@ -1093,8 +1122,494 @@ def kernel_numbers(x, c, ops, parity_errs, launches):
             shape=[m, n2, k], tier="high", bound_ms=b, bound_by=by,
             ms=cuda_ms(lambda: tc._fused_argmin("high", "l2", xs, cs, m, n2,
                                                 k), 2),
-            plain_ms=None)           # the plain version needs m x n2 f32
+            plain_ms=None,           # the plain version needs m x n2 f32
+            library_ms=cuda_ms(lambda: cdist_argmin(x, cand), 1),
+            library_call="torch.cdist(x_chunk, y).argmin(1) over chunks of "
+                         f"{CDIST_ROWS} rows")
     return table
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the sparse kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def make_csr(gen, dev, n_rows, n_cols, max_len=20, empty_frac=0.3,
+             hubs=(), pad=0, dtype=None):
+    """A random CSR on the card: ``(indptr, indices, data)``, int32
+    indices. Rows of 0..max_len entries, ``empty_frac`` of them empty;
+    ``hubs`` is a list of ``(row, length)``; ``pad`` physical entries past
+    indptr[-1] carry NaN data, which the kernels must never read."""
+    import torch
+
+    dtype = dtype or torch.float32
+    lengths = torch.randint(0, max_len + 1, (n_rows,), generator=gen,
+                            device=dev)
+    lengths[torch.rand(n_rows, generator=gen, device=dev) < empty_frac] = 0
+    for row, length in hubs:
+        lengths[row] = length
+    indptr = torch.zeros(n_rows + 1, dtype=torch.int32, device=dev)
+    indptr[1:] = torch.cumsum(lengths, 0)
+    nnz = int(indptr[-1])
+    indices = torch.randint(0, max(n_cols, 1), (nnz + pad,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    data = torch.randn(nnz + pad, generator=gen, device=dev, dtype=dtype)
+    data[nnz:] = float("nan")
+    return indptr, indices, data
+
+
+def check_csr_product(got, want, indptr, indices, data, b, what):
+    """The sparse tolerance: |kernel - plain| <= rel (|A|·|B|)_row + rel,
+    rel = SPARSE_REL in f32 and SPARSE_REL_F64 in f64, with NaN and inf in
+    the same places. Returns the max abs error over finite outputs."""
+    import torch
+
+    from raft_tpu_torch.sparse import grid_spmv as tg
+
+    n_rows = indptr.shape[0] - 1
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: shape or dtype")
+    check(torch.equal(torch.isnan(got), torch.isnan(want))
+          and torch.equal(torch.isinf(got), torch.isinf(want)),
+          f"{what}: NaN/inf positions differ")
+    bb = b.abs().reshape(b.shape[0], -1)
+    mass = tg._spmm_plain(indptr, indices, data.abs(), bb, n_rows).reshape(
+        got.shape)
+    rel = SPARSE_REL if got.dtype == torch.float32 else SPARSE_REL_F64
+    fin = torch.isfinite(want)
+    err = (got - want).abs()[fin]
+    check(bool((err <= rel * mass[fin] + rel).all()),
+          f"{what}: max err {float(err.max())}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def sparse_pair(indptr, indices, data, b, n_rows, what):
+    """Kernel (``_spmm``: csr_spmv for k = 1, csr_spmm above) twice, bitwise
+    equal, and against the plain version. Returns the max abs error."""
+    import torch
+
+    from raft_tpu_torch.sparse import grid_spmv as tg
+
+    got = tg._spmm(indptr, indices, data, b, n_rows)
+    again = tg._spmm(indptr, indices, data, b, n_rows)
+    check(torch.equal(got.view(torch.uint8), again.view(torch.uint8)),
+          f"{what}: two runs differ")
+    want = tg._spmm_plain(indptr, indices, data, b, n_rows)
+    return check_csr_product(got, want, indptr, indices, data, b, what)
+
+
+def sparse_parity(dev):
+    """csr_spmv and csr_spmm against their plain versions on the card: a
+    hub row of 100,000 entries, empty rows, an empty matrix, a stored zero
+    against x = inf, a padded CSR, a non-square matrix, f64, and
+    k = 1, 2, 31, 32, 33, 64."""
+    import torch
+
+    from raft_tpu_torch.sparse import grid_spmv as tg
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    errs = {"csr_spmv": 0.0, "csr_spmm": 0.0}
+    case_errs = {}
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        # non-square, a hub row, a third of the rows empty, 5,000 pad
+        # entries (NaN) past indptr[-1], x = inf at one column
+        shape = (20000, 150000)
+        indptr, indices, data = make_csr(gen, dev, *shape, max_len=40,
+                                         hubs=[(7, 100000), (19999, 3000)],
+                                         pad=5000, dtype=dtype)
+        for k in SPARSE_KS:
+            b = torch.randn(shape[1], k, generator=gen, device=dev,
+                            dtype=dtype)
+            b[int(indices[0]), 0] = float("inf")
+            name = "csr_spmv" if k == 1 else "csr_spmm"
+            what = f"{name} {dtype} k={k}"
+            case_errs[what] = sparse_pair(indptr, indices, data, b, shape[0],
+                                          what)
+            errs[name] = max(errs[name], case_errs[what])
+            empty = indptr[1:] == indptr[:-1]
+            got = tg._spmm(indptr, indices, data, b, shape[0])
+            check(bool((got[empty] == 0).all()), f"{what}: empty rows")
+            cases.append(what)
+    # a stored zero against x = inf: NaN in its row, no other row touched
+    indptr = torch.tensor([0, 2, 3], dtype=torch.int32, device=dev)
+    indices = torch.tensor([0, 1, 0], dtype=torch.int32, device=dev)
+    data = torch.tensor([2.0, 0.0, 3.0], device=dev)
+    x = torch.tensor([1.0, float("inf")], device=dev)
+    y = tg._spmv(indptr, indices, data, x, 2)
+    check(bool(torch.isnan(y[0])) and float(y[1]) == 3.0,
+          f"stored zero against inf: got {y.tolist()}")
+    yb = tg._spmm(indptr, indices, data, torch.stack([x, x], 1), 2)
+    check(bool(torch.isnan(yb[0]).all()) and bool((yb[1] == 3.0).all()),
+          "stored zero against inf (spmm)")
+    # an empty matrix: every row exactly 0
+    indptr = torch.zeros(1001, dtype=torch.int32, device=dev)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    for k in (1, 33):
+        out = tg._spmm(indptr, none, torch.zeros(0, device=dev),
+                       torch.ones(500, k, device=dev), 1000)
+        check(torch.equal(out, torch.zeros(1000, k, device=dev)),
+              f"empty matrix k={k}")
+    cases += ["stored zero vs inf", "empty matrix"]
+    emit("sparse_parity", cases=cases, max_abs_err=errs,
+         max_abs_err_by_case=case_errs, bitwise_repeatable=True,
+         tolerance=f"|kernel - plain| <= rel x (|A|.|B|)_row + rel, rel "
+                   f"{SPARSE_REL} (f32) or {SPARSE_REL_F64} (f64); NaN/inf "
+                   f"positions equal; empty rows 0")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 8: BASELINE config 4 (R-MAT, SpMV, SpMM, Lanczos) on the card
+# ---------------------------------------------------------------------------
+
+
+def csr_from_edges(src, dst, n, weights=None):
+    """Symmetric CSR adjacency on the edges' device: self-loops dropped,
+    duplicate directed edges summed, then symmetrized with max, as
+    benches/bench_prims.py:877-889 builds BASELINE config 4's graph
+    (scipy's ``adj.maximum(adj.T)``)."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.core.sparse_types import COOMatrix
+    from raft_tpu_torch.sparse import convert, linalg, op
+
+    keep = src != dst
+    src, dst = src[keep].to(torch.int32), dst[keep].to(torch.int32)
+    w = torch.ones(src.shape[0], dtype=torch.float32, device=src.device) \
+        if weights is None else weights[keep]
+    coo = op.sum_duplicates(COOMatrix(src, dst, w, (n, n)))
+    sym = linalg.coo_symmetrize(coo, np.maximum.reduceat)
+    return convert.sorted_coo_to_csr(sym)
+
+
+def graph_stats(csr):
+    lengths = (csr.indptr[1:] - csr.indptr[:-1]).long()
+    return dict(n=csr.n_rows, nnz=csr.logical_nnz(),
+                isolated=int((lengths == 0).sum()),
+                longest_row=int(lengths.max()),
+                rows_over_1024=int((lengths > 1024).sum()),
+                mean_degree=csr.logical_nnz() / csr.n_rows)
+
+
+def spmv_bound(nnz, n_rows, n_cols, k, idx_bytes):
+    """Least bytes over the HBM rate (ms): each entry's index and value,
+    indptr, B (or x) and C (or y) once."""
+    b = nnz * 8 + (n_rows + 1) * idx_bytes + 4 * n_cols * k + 4 * n_rows * k
+    return b / PEAK_BYTES * 1e3, b
+
+
+def rows_subset(csr, keep_rows):
+    """The CSR with only ``keep_rows`` (a bool mask) keeping entries."""
+    import torch
+
+    from raft_tpu_torch.core.sparse_types import CSRMatrix
+
+    lengths = (csr.indptr[1:] - csr.indptr[:-1]).long()
+    mask = keep_rows.repeat_interleave(lengths)
+    indptr = torch.zeros_like(csr.indptr)
+    indptr[1:] = torch.cumsum(torch.where(keep_rows, lengths, 0), 0)
+    return CSRMatrix(indptr, csr.indices[mask], csr.data[mask], csr.shape)
+
+
+def lanczos_sync_cost(csr, steps=20, reps=3):
+    """Host ms per Lanczos step with the per-step breakdown sync (the
+    port's loop) and without it, alternating, on the config-4 operator."""
+    import torch
+
+    from raft_tpu_torch.sparse import grid_spmv, linalg
+    from raft_tpu_torch.sparse.solver import lanczos as tl
+
+    plan = linalg._cached_plan(csr)
+    n = csr.n_rows
+    gen = torch.Generator(device=csr.device).manual_seed(SEED + 8)
+    v0 = torch.randn(n, generator=gen, device=csr.device)
+    v0 = v0 / torch.linalg.vector_norm(v0)
+
+    def run(sync):
+        basis = torch.zeros((steps, n), device=csr.device)
+        scale = torch.zeros((), device=csr.device)
+        v = v0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(steps):
+            w, _, b, scale, bad = tl._lanczos_step(
+                lambda u: linalg.grid_spmv.spmv(plan, u), basis, v, j, scale)
+            if sync:
+                bool(bad)
+            v = w / b
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    run(True)
+    out = {"sync": [], "no_sync": []}
+    for _ in range(reps):
+        for sync in (False, True, True, False):
+            out["sync" if sync else "no_sync"].append(run(sync))
+    return {k: sum(v) / len(v) for k, v in out.items()}
+
+
+def config4_phase(res, dev):
+    """BASELINE config 4 at full size on one card: the R-MAT graph (scale
+    20, 10M edges, a/b/c 0.57/0.19/0.19) built on the card by the port's
+    generator, one SpMV, one SpMM at k = 16 and the fixed 3-restart
+    Lanczos of bench_prims.py:890-893, all through the public entry
+    points with the launch counts set to 0 just before."""
+    import warnings
+
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.random import RngState, rmat_rectangular_gen
+    from raft_tpu_torch.sparse import linalg
+    from raft_tpu_torch.sparse.solver import (LanczosConfig,
+                                              lanczos_compute_eigenpairs)
+
+    t0 = time.perf_counter()
+    src, dst = rmat_rectangular_gen(res, RngState(SEED + 9), RMAT_SCALE,
+                                    RMAT_SCALE, RMAT_EDGES)
+    g = csr_from_edges(src, dst, 1 << RMAT_SCALE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del src, dst
+    stats = graph_stats(g)
+    n = g.n_rows
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x = torch.randn(n, generator=gen, device=dev)
+    b16 = torch.randn(n, SPMM_K, generator=gen, device=dev)
+    cfg = LanczosConfig(n_components=4, ncv=20, max_iterations=3,
+                        tolerance=0.0)
+    n_steps = cfg.ncv + (cfg.max_iterations - 1) * (cfg.ncv
+                                                    - cfg.n_components)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    y = linalg.spmv(g, x)
+    c16 = linalg.spmm(g, b16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # tol 0: by design
+        vals, vecs, rep = lanczos_compute_eigenpairs(res, g, cfg,
+                                                     return_report=True)
+    torch.cuda.synchronize()
+    lanczos_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for name in ("csr_spmv", "csr_spmm"):
+        check(launches[name] > 0, f"config-4 phase never launched {name}")
+    check(launches["csr_spmv"] == 1 + n_steps,
+          f"csr_spmv launches {launches['csr_spmv']}, want {1 + n_steps}")
+
+    # checks, after the counted run
+    err_v = check_csr_product(y, linalg.grid_spmv._spmv_plain(
+        g.indptr, g.indices, g.data, x, n), g.indptr, g.indices, g.data, x,
+        "config-4 spmv")
+    err_m = check_csr_product(c16, linalg.grid_spmv._spmm_plain(
+        g.indptr, g.indices, g.data, b16, n), g.indptr, g.indices, g.data,
+        b16, "config-4 spmm k=16")
+    check(tuple(vecs.shape) == (n, 4) and bool(torch.isfinite(vals).all())
+          and bool(torch.isfinite(vecs).all()), "Ritz pairs not finite")
+    gram = vecs.double().T @ vecs.double()
+    orth = float((gram - torch.eye(4, device=dev,
+                                   dtype=torch.float64)).abs().max())
+    check(orth <= 1e-4, f"Ritz vectors not orthonormal: {orth}")
+    check(rep.n_iter == cfg.max_iterations, f"n_iter {rep.n_iter}")
+
+    spmv_ms = cuda_ms(lambda: linalg.spmv(g, x), 20)
+    spmm_ms = cuda_ms(lambda: linalg.spmm(g, b16), 10)
+    lengths = g.indptr[1:] - g.indptr[:-1]
+    tail = {}
+    for part, rows in (("short_rows", lengths <= 1024),
+                       ("long_rows", lengths > 1024)):
+        sub = rows_subset(g, rows)
+        tail[f"{part}_spmv_ms"] = cuda_ms(lambda: linalg.spmv(sub, x), 20)
+        tail[f"{part}_spmm_k16_ms"] = cuda_ms(lambda: linalg.spmm(sub, b16),
+                                              10)
+        del sub
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        lanczos_ms = cuda_ms(lambda: lanczos_compute_eigenpairs(res, g, cfg),
+                             2)
+    qr_ms = cuda_ms(lambda: torch.linalg.qr(vecs), 5)
+    sync = lanczos_sync_cost(g)
+    step_ms = lanczos_ms / n_steps
+    out = dict(graph=stats, build_s=build_s, spmv_ms=spmv_ms,
+               spmm_k16_ms=spmm_ms, lanczos_first_call_s=lanczos_s,
+               lanczos_ms=lanczos_ms,
+               lanczos_ms_per_restart=lanczos_ms / cfg.max_iterations,
+               lanczos_ms_per_step=step_ms, lanczos_steps=n_steps,
+               spmv_share_of_step=spmv_ms / step_ms, hub_tail=tail,
+               qr_n_by_4_ms=qr_ms, step_ms_with_sync=sync["sync"],
+               step_ms_without_sync=sync["no_sync"],
+               ritz_values=vals.tolist(), ritz_orthonormality_err=orth,
+               max_abs_err={"csr_spmv": err_v, "csr_spmm": err_m},
+               launches={k: v for k, v in launches.items() if v})
+    emit("config4", **out)
+    return g, x, b16, out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: spectral partition of a planted-partition graph of config-4 size
+# ---------------------------------------------------------------------------
+
+
+def planted_graph(res):
+    """2^20 nodes in 4 equal blocks, about 9.5M undirected edges, 98% of
+    them inside a block, drawn with numpy from the seed; the CSR is built
+    on the card. Returns the CSR and each node's block."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 11)
+    n, blocks = 1 << RMAT_SCALE, PLANTED_BLOCKS
+    size = n // blocks
+    inside = rng.random(PLANTED_EDGES) < PLANTED_INSIDE
+    bs = rng.integers(0, blocks, PLANTED_EDGES)
+    bd = np.where(inside, bs,
+                  (bs + rng.integers(1, blocks, PLANTED_EDGES)) % blocks)
+    src = bs * size + rng.integers(0, size, PLANTED_EDGES)
+    dst = bd * size + rng.integers(0, size, PLANTED_EDGES)
+    dev = res.device
+    g = csr_from_edges(torch.as_tensor(src, device=dev),
+                       torch.as_tensor(dst, device=dev), n)
+    return g, torch.arange(n, device=dev) // size
+
+
+def best_agreement(labels, truth, k):
+    """Fraction of nodes labelled as their block under the best
+    permutation of label ids."""
+    import itertools
+
+    import torch
+
+    table = torch.zeros(k, k, dtype=torch.int64, device=labels.device)
+    table.index_put_((labels.long(), truth.long()),
+                     torch.ones_like(truth, dtype=torch.int64),
+                     accumulate=True)
+    best = max(sum(int(table[i, p[i]]) for i in range(k))
+               for p in itertools.permutations(range(k)))
+    return best / labels.numel()
+
+
+def partition_phase(res, dev):
+    """``spectral.partition(res, g, n_clusters=4)`` with its defaults, then
+    both analyzers, with the launch counts set to 0 just before. After the
+    counted run, both kernels are held against their plain versions at
+    this path's shapes: csr_spmm on A·one_hot(labels) [2^20, 4] (the
+    analyzers' product) and csr_spmv on the partition's normalized
+    Laplacian (the Lanczos operator)."""
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.sparse import linalg
+    from raft_tpu_torch.spectral import (analyze_modularity,
+                                         analyze_partition, partition)
+
+    t0 = time.perf_counter()
+    g, truth = planted_graph(res)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    stats = graph_stats(g)
+    row = g.row_ids().long()
+    planted_cut = int((truth[row] != truth[g.indices.long()]).sum()) // 2
+    del row
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    labels, vals, vecs, rep = partition(res, g, n_clusters=4,
+                                        return_report=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cut, cost = analyze_partition(res, g, 4, labels)
+    q = analyze_modularity(res, g, 4, labels)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    for name in ("csr_spmv", "csr_spmm", "fused_lloyd"):
+        check(launches[name] > 0, f"partition phase never launched {name}")
+
+    # checks, after the counted run
+    check(rep.converged, f"partition's Lanczos did not converge: {rep}")
+    agree = best_agreement(labels, truth, PLANTED_BLOCKS)
+    check(agree >= 0.99, f"labels recover the blocks at {agree}")
+    cut = float(cut)
+    check(abs(cut - planted_cut) <= 0.01 * planted_cut,
+          f"edge cut {cut} vs planted {planted_cut}")
+    check(bool(torch.isfinite(vals).all()), "eigenvalues not finite")
+    plan = linalg._cached_plan(g)
+    h = (labels.long()[:, None] == torch.arange(4, device=dev)).to(
+        plan.data.dtype)
+    err_m = sparse_pair(plan.indptr, plan.indices, plan.data, h, g.n_rows,
+                        "partition csr_spmm A.one_hot(labels)")
+    lap = linalg._cached_plan(linalg.laplacian_normalized(g))
+    err_v = sparse_pair(lap.indptr, lap.indices, lap.data,
+                        vecs[:, :1].to(lap.data.dtype), g.n_rows,
+                        "partition csr_spmv on the normalized Laplacian")
+    errs = {"csr_spmv": err_v, "csr_spmm": err_m}
+    out = dict(graph=stats, build_s=build_s, wall_s=wall,
+               n_iter=rep.n_iter, converged=rep.converged,
+               residual=rep.residual, breakdowns=rep.breakdowns,
+               eigenvalues=vals.tolist(), agreement=agree, edge_cut=cut,
+               planted_cut=planted_cut, ratio_cut_cost=float(cost),
+               modularity=float(q), laplacian_nnz=lap.nnz,
+               max_abs_err=errs,
+               launches={k: v for k, v in launches.items() if v})
+    emit("spectral_partition", **out)
+    return launches, errs
+
+
+def sparse_numbers(g, x, b16, launches, errs):
+    """The two sparse kernels' rows at the config-4 shape: kernel, plain
+    version and cuSPARSE (``torch.sparse_csr_tensor`` @, timed only)."""
+    import warnings
+
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.sparse import grid_spmv as tg
+
+    n, nnz = g.n_rows, g.logical_nnz()
+    with warnings.catch_warnings():       # torch's sparse-CSR beta notices
+        warnings.simplefilter("ignore", UserWarning)
+        lib = torch.sparse_csr_tensor(g.indptr, g.indices, g.data,
+                                      size=g.shape)
+    idx_bytes = g.indptr.element_size()
+    ops = (g.indptr, g.indices, g.data)
+    rows = []
+    for name, k, dense, kernel, plain_fn, library, call in (
+            ("csr_spmv", 1, x, tg._spmv, tg._spmv_plain,
+             lambda: torch.mv(lib, x),
+             "torch.mv(torch.sparse_csr_tensor(...), x) (cuSPARSE)"),
+            ("csr_spmm", SPMM_K, b16, tg._spmm, tg._spmm_plain,
+             lambda: lib @ b16,
+             "torch.sparse_csr_tensor(...) @ B (cuSPARSE)")):
+        b, nbytes = spmv_bound(nnz, n, n, k, idx_bytes)
+
+        def run(kernel=kernel, dense=dense):
+            return kernel(*ops, dense, n)
+
+        def plain(plain_fn=plain_fn, dense=dense):
+            return plain_fn(*ops, dense, n)
+
+        want = plain()
+        got = run()
+        err = check_csr_product(got, want, g.indptr, g.indices, g.data,
+                                dense, f"{name} at config 4")
+        lib_err = float((library().reshape(got.shape) - got).abs().max())
+        spec = kernels.REGISTRY[name]
+        ms = cuda_ms(run, 20)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"raft_tpu_torch/{spec.source}",
+            "replaces": spec.replaces, "launches": launches[name],
+            "max_abs_err": max(err, errs[name]), "ms": ms,
+            "plain_ms": cuda_ms(plain, 5), "bound_ms": b,
+            "bound_by": "bytes", "library_ms": cuda_ms(library, 20),
+            "library_call": call, "library_max_abs_diff": lib_err,
+            "parity": "pass", "shape": [n, n], "nnz": nnz, "k": k,
+            "bytes": nbytes, "achieved_gb_s": nbytes / ms / 1e6})
+    return rows
 
 
 def main():
@@ -1133,6 +1648,7 @@ def main():
 
     parity_errs = parity(dev)
     parity_errs.update(topk_parity(dev))
+    parity_errs.update(sparse_parity(dev))
     x, c, ops, launches = main_path(res, dev)
     small_fit_matches_cpu(res, dev)
     pairwise_phase(res, dev)
@@ -1152,6 +1668,16 @@ def main():
     next(r for r in table if r["name"] == "pairwise_tile")[
         "knn_chunk_shape"] = pairwise_chunk
     table += topk_table
+    del db, q, v_radix, v_ins, v_desc
+    torch.cuda.empty_cache()
+
+    g, x, b16, c4, c4_launches = config4_phase(res, dev)
+    part_launches, part_errs = partition_phase(res, dev)
+    sparse_launches = {n: c4_launches[n] + part_launches[n]
+                       for n in ("csr_spmv", "csr_spmm")}
+    table += sparse_numbers(g, x, b16, sparse_launches, {
+        n: max(parity_errs[n], c4["max_abs_err"][n], part_errs[n])
+        for n in sparse_launches})
     RECORD["kernels"] = table
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

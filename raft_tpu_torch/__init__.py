@@ -21,6 +21,10 @@ cluster             : k-means (Lloyd, k-means|| init)
 neighbors           : brute-force kNN (fused top-k, radix and scan routes)
 matrix              : select_k (radix, insertion, tiled, stream, direct),
                       argmin, argmax
+sparse              : CSR/COO types, convert, op, SpMV/SpMM (CSR kernels),
+                      linalg (Laplacian, symmetrize, ...), Lanczos eigsh
+spectral            : partition, modularity_maximization, analyzers
+random              : RngState, rmat_rectangular_gen
 
 The package imports neither ``jax`` nor ``raft_tpu``.
 """

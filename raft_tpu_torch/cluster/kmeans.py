@@ -36,7 +36,9 @@ from raft_tpu_torch.linalg.contractions import (fused_l2_argmin_pallas,
                                                 lloyd_prepare)
 from raft_tpu_torch.matrix.epilogue import label_onehot
 from raft_tpu_torch.random.rng_state import RngState
-from raft_tpu_torch.util.input_validation import expect_2d, expect_finite
+from raft_tpu_torch.util.input_validation import (expect_2d,
+                                                  expect_finite,
+                                                  resolve_sync_every)
 from raft_tpu_torch.util.precision import with_matmul_precision
 
 
@@ -253,17 +255,6 @@ def _finish_report(converged: bool, n_iter: int, rel_change: float,
     return report
 
 
-def _resolve_sync_every(sync_every: Optional[int]) -> int:
-    """``sync_every`` validated as in the reference package's
-    ``runtime.compiled_driver.resolve_sync_every``; ``None`` is 1."""
-    if sync_every is None:
-        return 1
-    n = int(sync_every)
-    if n < 1:
-        raise ValueError(f"sync_every must be >= 1, got {sync_every}")
-    return n
-
-
 def kmeans_fit(res, params: KMeansParams, x,
                centroids: Optional[torch.Tensor] = None,
                sample_weights=None, strict: bool = False,
@@ -293,7 +284,7 @@ def kmeans_fit(res, params: KMeansParams, x,
         w = torch.as_tensor(sample_weights, device=x.device)
         _validate_sample_weights(w, x.shape[0])
         w = w.to(torch.float32)
-    sync = _resolve_sync_every(sync_every)
+    sync = resolve_sync_every(sync_every)
     check = 1 if sync > 1 else max(1, int(params.check_every))
     c = _init_centroids(params, x, centroids, sample_weights=w)
     ops, meta = (None, None) if w is not None \

@@ -69,5 +69,14 @@ def _parse_precision(raw: str) -> str:
     return canon
 
 
+def _parse_flag(raw: str) -> bool:
+    """Loose boolean, as the reference package reads it: anything but
+    0/false is on."""
+    return raw.lower() not in ("0", "false")
+
+
 register("RAFT_TPU_MATMUL_PRECISION", _parse_precision, "high",
          help="matmul precision tier; see util/precision.py")
+register("RAFT_TPU_SPARSE_PAD", _parse_flag, True,
+         help="pad CSR indices/data to an nnz size class in from_scipy "
+              "(core/sparse_types.py); changes the physical nnz")

@@ -11,8 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["NumericalError", "NonFiniteError", "ConvergenceError",
-           "ConvergenceReport", "resolve_guard_mode"]
+__all__ = ["NumericalError", "NonFiniteError", "IllConditionedError",
+           "ConvergenceError", "ConvergenceReport", "resolve_guard_mode"]
 
 
 class NumericalError(RuntimeError):
@@ -32,6 +32,11 @@ class NonFiniteError(NumericalError):
                  stage: str = "output"):
         super().__init__(message, op=op)
         self.stage = stage
+
+
+class IllConditionedError(NumericalError):
+    """The input's conditioning makes the operation undefined, such as a
+    zero or non-finite starting vector for Lanczos."""
 
 
 @dataclasses.dataclass

@@ -132,6 +132,31 @@ REGISTRY: Dict[str, KernelSpec] = {
             replaces="raft_tpu/matrix/radix_select.py:332",
             parity_test="tests/test_torch_radix_select.py"
                         "::test_radix_ranks_match_reference"),
+        KernelSpec(
+            name="csr_spmv",
+            source="csrc/csr_spmv.cu",
+            symbol="raft_csr_spmv",
+            # dtype, idx64, indptr, indices, data, x, y, n_rows, stream
+            argtypes=(_I, _I, _P, _P, _P, _P, _P, _I, _P),
+            plain="raft_tpu_torch.sparse.grid_spmv._spmv_plain",
+            ports="raft_tpu/sparse/grid_spmv.py:_tree_gather_kernel, "
+                  "_segsum_kernel, _reduce_kernel",
+            replaces="raft_tpu/sparse/grid_spmv.py:426",
+            parity_test="tests/test_torch_sparse.py"
+                        "::test_spmv_matches_reference"),
+        KernelSpec(
+            name="csr_spmm",
+            source="csrc/csr_spmm.cu",
+            symbol="raft_csr_spmm",
+            # dtype, idx64, indptr, indices, data, b, ldb, c, ldc, n_rows,
+            # k, stream
+            argtypes=(_I, _I, _P, _P, _P, _P, _L, _P, _L, _I, _I, _P),
+            plain="raft_tpu_torch.sparse.grid_spmv._spmm_plain",
+            ports="raft_tpu/sparse/grid_spmv.py:_gather_kt_kernel, "
+                  "_segsum_kt_kernel, _reduce_kt_kernel",
+            replaces="raft_tpu/sparse/grid_spmv.py:653",
+            parity_test="tests/test_torch_sparse.py"
+                        "::test_spmm_matches_reference"),
     )
 }
 

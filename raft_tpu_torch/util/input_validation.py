@@ -30,3 +30,15 @@ def expect_finite(arr: torch.Tensor, name: str = "array",
         raise NonFiniteError(
             f"{name}: non-finite values detected at the input boundary "
             f"(guard_mode={mode!r})", op=name, stage="input")
+
+
+def resolve_sync_every(sync_every: Optional[int]) -> int:
+    """``sync_every`` validated as in the reference package's
+    ``runtime.compiled_driver.resolve_sync_every``; ``None`` is 1 (the
+    reference's cost model has no counterpart yet)."""
+    if sync_every is None:
+        return 1
+    n = int(sync_every)
+    if n < 1:
+        raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+    return n

@@ -10,8 +10,11 @@ and differ only in f32 accumulation order, so distances agree to 1e-5 of
 (|x|² + |y|²) and labels agree except at near-ties; counts are exact and
 two runs of a kernel are bitwise equal. The selection kernels (top-k
 insertion, radix threshold and emission) are exact: their output equals
-the plain version's, bit for bit. chip_smoke.py runs the same checks
-with ties, NaN rows and padded rows, and at full size.
+the plain version's, bit for bit. The CSR kernels (SpMV, SpMM) agree
+with their plain versions to 2e-5 of (|A|·|B|)_row + 2e-5 in f32, and
+1e-12 of it + 1e-12 in f64 (sums in another order), with NaN in the same places, empty rows exactly 0 and
+two runs bitwise equal. chip_smoke.py runs the same checks with ties,
+NaN rows and padded rows, and at full size.
 """
 
 import pytest
@@ -180,3 +183,92 @@ def test_radix_kernels_match_plain_on_card(card, rows, cols):
         idx = _counted("radix_emit", lambda: trs._radix_emit(keys, t, ntie,
                                                              k))
         assert torch.equal(idx, trs._emit_plain(keys, pt, pntie, k))
+
+
+def _card_csr(card, dtype, n_rows=3000, n_cols=2500, hub=20000, pad=100):
+    """A CSR on the card: rows of 0-20 entries (a third empty), one hub row
+    of ``hub`` entries, and ``pad`` physical entries past indptr[-1] with
+    NaN data, which must never be read."""
+    g = torch.Generator(device=card).manual_seed(16)
+    lengths = torch.randint(0, 21, (n_rows,), generator=g, device=card)
+    lengths[torch.rand(n_rows, generator=g, device=card) < 0.33] = 0
+    lengths[7] = hub
+    indptr = torch.zeros(n_rows + 1, dtype=torch.int32, device=card)
+    indptr[1:] = torch.cumsum(lengths, 0)
+    nnz = int(indptr[-1])
+    indices = torch.randint(0, n_cols, (nnz + pad,), generator=g,
+                            device=card, dtype=torch.int32)
+    data = torch.randn(nnz + pad, generator=g, device=card, dtype=dtype)
+    data[nnz:] = float("nan")
+    return indptr, indices, data, g
+
+
+def _assert_csr_close(got, want, indptr, indices, data, b):
+    """|kernel - plain| <= rel (|A|·|B|) + rel, NaN in the same places:
+    rel 2e-5 in f32, 1e-12 in f64, where an f32 sum would miss by ~1e-7."""
+    from raft_tpu_torch.sparse import grid_spmv as tg
+
+    rel = 2e-5 if got.dtype == torch.float32 else 1e-12
+    n_rows = indptr.shape[0] - 1
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    mass = (tg._spmm_plain(indptr, indices, data.abs(), b.abs().reshape(
+        b.shape[0], -1), n_rows)).reshape(got.shape)
+    fin = torch.isfinite(want)
+    assert bool(((got - want).abs()[fin] <= rel * mass[fin] + rel).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 2, 31, 32, 33, 64])
+def test_csr_kernels_match_plain_on_card(card, dtype, k):
+    from raft_tpu_torch.sparse import grid_spmv as tg
+
+    indptr, indices, data, g = _card_csr(card, dtype)
+    n_rows, n_cols = indptr.shape[0] - 1, 2500
+    b = torch.randn(n_cols, k, generator=g, device=card, dtype=dtype)
+    b[11, 0] = float("inf")          # rows holding column 11: NaN or inf
+    name = "csr_spmv" if k == 1 else "csr_spmm"
+    got = _counted(name, lambda: tg._spmm(indptr, indices, data, b, n_rows))
+    again = tg._spmm(indptr, indices, data, b, n_rows)
+    assert got.dtype == dtype and got.shape == (n_rows, k)
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    want = tg._spmm_plain(indptr, indices, data, b, n_rows)
+    _assert_csr_close(got, want, indptr, indices, data, b)
+    empty = (indptr[1:] == indptr[:-1])
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_csr_spmv_empty_matrix_and_int64_indptr_on_card(card):
+    from raft_tpu_torch.sparse import grid_spmv as tg
+
+    indptr = torch.zeros(65, dtype=torch.int64, device=card)
+    indices = torch.zeros(0, dtype=torch.int32, device=card)
+    data = torch.zeros(0, device=card)
+    y = _counted("csr_spmv", lambda: tg._spmv(indptr, indices, data,
+                                             torch.ones(64, device=card), 64))
+    assert torch.equal(y, torch.zeros(64, device=card))
+    ip, ind, d, g = _card_csr(card, torch.float32, hub=300)
+    x = torch.randn(2500, generator=g, device=card)
+    got = tg._spmv(ip.long(), ind, d, x, ip.shape[0] - 1)
+    assert torch.equal(got, tg._spmv(ip, ind, d, x, ip.shape[0] - 1))
+
+
+@pytest.mark.cuda
+def test_duplicate_sums_on_card_match_the_cpu(card):
+    """sparse.op folds runs of equal keys in one fixed order, with no
+    atomics: the card gives the CPU's bits, run after run."""
+    from raft_tpu_torch.core.sparse_types import COOMatrix
+    from raft_tpu_torch.sparse import op
+
+    g = torch.Generator().manual_seed(17)
+    rows = torch.randint(0, 50, (20000,), generator=g, dtype=torch.int32)
+    cols = torch.randint(0, 50, (20000,), generator=g, dtype=torch.int32)
+    data = torch.randn(20000, generator=g)
+    want = op.sum_duplicates(COOMatrix(rows, cols, data, (50, 50)))
+    on_card = COOMatrix(rows.to(card), cols.to(card), data.to(card), (50, 50))
+    for _ in range(2):
+        got = op.sum_duplicates(on_card)
+        assert torch.equal(got.rows.cpu(), want.rows)
+        assert torch.equal(got.cols.cpu(), want.cols)
+        assert torch.equal(got.data.cpu(), want.data)

@@ -31,7 +31,9 @@ def _run(code, **env):
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, raft_tpu_torch, raft_tpu_torch.cluster, "
             "raft_tpu_torch.distance, raft_tpu_torch.interop, "
-            "raft_tpu_torch.matrix, raft_tpu_torch.neighbors; "
+            "raft_tpu_torch.matrix, raft_tpu_torch.neighbors, "
+            "raft_tpu_torch.sparse, raft_tpu_torch.sparse.solver, "
+            "raft_tpu_torch.spectral, raft_tpu_torch.random; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'raft_tpu.')) or m == 'raft_tpu'))")
     out = _run(code)
@@ -95,10 +97,34 @@ def test_cpu_tensors_never_count_a_launch():
     tc.fused_l2_argmin_pallas(x, x[:3])
     tc.pairwise_l2_pallas(x, x[:3])
     knn(None, x, x[:3], 4)
+    _sparse_calls_on_the_cpu()
     v = torch.randn(3, 9000, generator=torch.Generator().manual_seed(1))
     select_k(None, v, 40)                                   # radix
     select_k(None, v, 40, algo=SelectAlgo.WARPSORT_FILTERED)  # insert
     assert set(kernels.launch_counts().values()) == {0}
+
+
+def _sparse_calls_on_the_cpu():
+    """SpMV, SpMM, eigsh and a partition on CPU tensors."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    import raft_tpu_torch as rt
+    from raft_tpu_torch.core.sparse_types import CSRMatrix
+    from raft_tpu_torch.sparse import linalg
+    from raft_tpu_torch.sparse.solver import eigsh
+    from raft_tpu_torch.spectral import analyze_partition, partition
+
+    res = rt.device_resources("cpu")
+    blocks = sp.block_diag([np.ones((6, 6)) - np.eye(6)] * 2).tolil()
+    blocks[0, 6] = blocks[6, 0] = 1.0
+    g = CSRMatrix.from_scipy(sp.csr_matrix(blocks, dtype=np.float32),
+                             res=res)
+    linalg.spmv(g, torch.ones(12))
+    linalg.spmm(g, torch.ones(12, 3))
+    eigsh(g, k=2)
+    labels, _, _ = partition(res, g, 2)
+    analyze_partition(res, g, 2, labels)
 
 
 def test_device_resources_refuses_cpu_fallback():
@@ -121,7 +147,9 @@ def test_device_resources_refuses_cpu_fallback():
 @pytest.mark.parametrize("entry", ["pairwise_distance", "fused_l2_nn_argmin",
                                    "knn", "select_k", "radix_select_k",
                                    "insert_select", "knn_fused",
-                                   "insert_drain_ref"])
+                                   "insert_drain_ref", "spmv", "spmm",
+                                   "csr_from_scipy", "csr_from_numpy",
+                                   "eigsh", "partition"])
 def test_array_inputs_go_to_the_handle_device(entry):
     """An array with no handle goes to cuda:0: without CUDA that raises
     instead of running on the host; a CPU handle runs it here. The entry
@@ -137,11 +165,26 @@ def test_array_inputs_go_to_the_handle_device(entry):
     from raft_tpu_torch.neighbors import knn
     from raft_tpu_torch.neighbors.fused_topk import knn_fused
 
-    a = np.arange(24, dtype=np.float32).reshape(6, 4)
+    import scipy.sparse as sp
 
-    def arr(r):
+    from raft_tpu_torch import interop
+    from raft_tpu_torch.core.sparse_types import CSRMatrix
+    from raft_tpu_torch.sparse import linalg
+    from raft_tpu_torch.sparse.solver import eigsh
+    from raft_tpu_torch.spectral import partition
+
+    a = np.arange(24, dtype=np.float32).reshape(6, 4)
+    ring = sp.csr_matrix(np.roll(np.eye(8, dtype=np.float32), 1, 1)
+                         + np.roll(np.eye(8, dtype=np.float32), -1, 1))
+
+    def arr(r, v=a):
         """No handle: the numpy array; a handle: a tensor on its device."""
-        return a if r is None else torch.from_numpy(a).to(r.device)
+        return v if r is None else torch.from_numpy(v).to(r.device)
+
+    def csr(r):
+        """The matrix on the handle's device (the CPU without CUDA)."""
+        return CSRMatrix.from_scipy(ring, res=r or rt.device_resources(
+            "cuda" if torch.cuda.is_available() else "cpu"))
 
     call = {"pairwise_distance": lambda r: pairwise_distance(r, a),
             "fused_l2_nn_argmin": lambda r: fused_l2_nn_argmin(r, a, a[:2]),
@@ -150,7 +193,15 @@ def test_array_inputs_go_to_the_handle_device(entry):
             "radix_select_k": lambda r: radix_select_k(arr(r), 2),
             "insert_select": lambda r: insert_select(arr(r), 2),
             "knn_fused": lambda r: knn_fused(arr(r)[:3], arr(r), 2),
-            "insert_drain_ref": lambda r: insert_drain_ref(arr(r), 2)}[entry]
+            "insert_drain_ref": lambda r: insert_drain_ref(arr(r), 2),
+            "spmv": lambda r: linalg.spmv(csr(r), arr(r, a[:2].ravel())),
+            "spmm": lambda r: linalg.spmm(csr(r), arr(r, a.reshape(8, 3))),
+            "csr_from_scipy": lambda r: CSRMatrix.from_scipy(ring,
+                                                             res=r).data,
+            "csr_from_numpy": lambda r: interop.csr_from_numpy(
+                ring.indptr, ring.indices, ring.data, ring.shape, res=r).data,
+            "eigsh": lambda r: eigsh(ring.toarray(), k=2, res=r),
+            "partition": lambda r: partition(r, ring, 2)}[entry]
     if torch.cuda.is_available():
         out = call(None)
         first = out[0] if isinstance(out, tuple) else out
