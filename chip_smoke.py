@@ -4,25 +4,38 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit's ``nvcc`` and this checkout. It
-builds the port's CUDA kernels from ``raft_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card (the contraction kernels
-at all three precision tiers, the selection kernels at ragged shapes
-with ties, NaN and inf), and drives three paths, each with the launch
-counts set to 0 just before it and read just after:
+builds the port's twelve CUDA kernels from ``raft_tpu_torch/csrc``
+(one ``nvcc`` each, all at once), holds each against its plain PyTorch
+version on the card (the contraction kernels at all three precision
+tiers, the selection kernels at ragged shapes with ties, NaN and inf,
+the unexpanded tile at every metric in f32, bf16 and f64 with zero, NaN
+and inf entries, the MST E-stage on a 100,000-entry hub row under four
+colorings, the 1-NN probe over many database splits), and drives these
+paths, each with the launch counts set to 0 just before it and read
+just after:
 
 - k-means (Lloyd) on 1,000,000 x 128 f32 with k = 1024 at tier 'high',
   then the distance embedding of the data;
+- pairwise_distance at BASELINE config 1's 5000 x 50: the five expanded
+  metrics and the seven unexpanded ones;
 - brute-force kNN, db 1,048,576 x 128 f32, 4096 queries, tier 'high':
-  k = 64 and k = 256 (the fused route), k = 1024 (the radix route);
+  k = 64 and k = 256 (the fused route), k = 1024 (the radix route); l1
+  at k = 64 (the radix route through the unexpanded tile, 32 chunks),
+  linf and canberra at k = 64 with 256 queries;
 - select_k: AUTO on 64 x 2^20 f32, k = 2048 (radix), and
   WARPSORT_FILTERED on 1024 x 65,536 f32, k = 64 (insertion), on
   random and on descending rows;
+- the tune-only 1-NN probe at the kNN shape, beside the fused top-k at
+  k = 1 and 64 (the gap is the selection's share);
 - BASELINE config 4: the R-MAT graph (scale 20, 10M edges, about 19M
   stored entries) built on the card by the port's generator, one SpMV,
   one SpMM at k = 16 and the fixed 3-restart Lanczos (52 steps);
 - spectral partition of a planted 4-block graph of the same size, then
   both analyzers: the blocks must be recovered (agreement >= 0.99, edge
-  cut within 1% of the planted one) with a converged Lanczos.
+  cut within 1% of the planted one) with a converged Lanczos;
+- Borůvka MST on bench_mst's graph (R-MAT scale 20, 10M edges, random
+  weights): n - n_components forest edges, the f64 total weight equal to
+  scipy's, and forest and colors equal to the plain E-stage's.
 
 The CSR kernels are first held against their plain versions on a hub
 row of 100,000 entries, empty rows, an empty matrix, a stored zero
@@ -69,6 +82,17 @@ SPARSE_REL = 2e-5      # x (|A|.|x|)_row: two f32 summation orders
 SPARSE_REL_F64 = 1e-12  # the same in f64; an f32 sum would miss by ~1e-7
 # planted partition of config-4 size: 4 blocks, 98% of edges inside
 PLANTED_BLOCKS, PLANTED_EDGES, PLANTED_INSIDE = 4, 9_500_000, 0.98
+# unexpanded metrics: kernel vocabulary, those exact on integer inputs in
+# any summation order, and lane instructions per (i, j, c) element (a
+# subtract, then an add or max with |.| as a free modifier; canberra's IEEE
+# divide about 10 more; lp's powf about 20)
+UNEXP_METRICS = ("l1", "linf", "canberra", "lp", "hamming", "l2un")
+UNEXP_EXACT = ("l1", "linf", "hamming")
+UNEXP_INSTR = {"l1": 2, "linf": 2, "hamming": 2, "l2un": 2, "canberra": 12,
+               "lp": 22}
+UNEXP_K, UNEXP_Q = 64, 256                 # kNN k; linf/canberra queries
+# H100 SXM f32 lane-instruction issue rate: 132 SMs x 128 lanes x 1.98 GHz
+PEAK_LANE_INSTR = 132 * 128 * 1.98e9
 OUT_DIR = "chiprun_out"
 RECORD = {}
 
@@ -1122,7 +1146,11 @@ def kernel_numbers(x, c, ops, parity_errs, launches):
             shape=[m, n2, k], tier="high", bound_ms=b, bound_by=by,
             ms=cuda_ms(lambda: tc._fused_argmin("high", "l2", xs, cs, m, n2,
                                                 k), 2),
-            plain_ms=None,           # the plain version needs m x n2 f32
+            # the plain version at all m rows needs m x n2 f32 three times
+            plain_ms_at_plain_rows=cuda_ms(lambda: tc._argmin_plain(
+                "high", "l2", side_rows(xs, slice(0, CDIST_ROWS)), cs,
+                CDIST_ROWS, n2, k), 2),
+            plain_rows=CDIST_ROWS,
             library_ms=cuda_ms(lambda: cdist_argmin(x, cand), 1),
             library_call="torch.cdist(x_chunk, y).argmin(1) over chunks of "
                          f"{CDIST_ROWS} rows")
@@ -1612,6 +1640,642 @@ def sparse_numbers(g, x, b16, launches, errs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the unexpanded tile, the MST E-stage and the 1-NN probe
+# against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def unexp_rel(k):
+    """Two f32 summation orders of k non-negative terms: 1e-5 sqrt(k) of
+    the value (every unexpanded metric is its own mass)."""
+    return 1e-5 * k ** 0.5
+
+
+def equal_with_nan(a, b):
+    import torch
+
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def unexpanded_parity(dev):
+    """unexpanded_tile against its plain version (unexpanded_ref) for
+    every metric, f32, bf16 and f64, at ragged shapes (k from 1 to 300),
+    on integer-valued inputs (l1, linf and hamming exact in any order:
+    equal) and on normal ones, with zero, NaN and inf entries. Two runs
+    are bitwise equal. Returns the max abs error and which metrics were
+    bitwise equal to plain throughout."""
+    import torch
+
+    from raft_tpu_torch.linalg import contractions as tc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    err, bitwise, cases = 0.0, {m: True for m in UNEXP_METRICS}, 0
+    for m, n, k in ((1, 1, 1), (517, 301, 45), (33, 1000, 300),
+                    (200, 129, 7)):
+        for integer in (True, False):
+            x = torch.randn(m, k, generator=gen, device=dev)
+            y = torch.randn(n, k, generator=gen, device=dev)
+            if integer:
+                x, y = torch.round(3 * x), torch.round(3 * y)
+            if m > 2 and n > 1:
+                x[1] = 0.0                      # canberra 0/0 against y[0]
+                y[0] = 0.0
+                x[2, 0] = float("nan")          # linf keeps the NaN
+                y[-1, k // 2] = float("inf")
+            for dtype in (torch.float32, torch.bfloat16, torch.float64):
+                xx, yy = x.to(dtype), y.to(dtype)
+                wt = torch.float64 if dtype == torch.float64 else \
+                    torch.float32
+                for metric in UNEXP_METRICS:
+                    what = f"unexpanded {metric} {dtype} {m}x{n}x{k}" \
+                           f"{' int' if integer else ''}"
+                    got = tc.pairwise_unexpanded_pallas(xx, yy, metric, 3.0)
+                    again = tc.pairwise_unexpanded_pallas(xx, yy, metric,
+                                                          3.0)
+                    check(got.dtype == wt and torch.equal(
+                        got.view(torch.uint8), again.view(torch.uint8)),
+                        f"{what}: dtype or two runs differ")
+                    want = tc.unexpanded_ref(xx.to(wt), yy.to(wt), metric,
+                                             3.0)
+                    check(torch.equal(torch.isnan(got), torch.isnan(want)),
+                          f"{what}: NaN positions")
+                    same = equal_with_nan(got, want)
+                    bitwise[metric] &= same
+                    if integer and metric in UNEXP_EXACT:
+                        check(same, f"{what}: not exact")
+                    fin = torch.isfinite(want)
+                    e = (got - want).abs()[fin].double()
+                    check(bool((e <= unexp_rel(k) * want.abs()[fin] + 1e-6
+                                ).all()), f"{what}: max err {float(e.max())}")
+                    err = max(err, float(e.max()) if e.numel() else 0.0)
+                    if m > 2 and n > 1:
+                        if metric == "canberra":
+                            check(float(got[1, 0]) == 0.0, f"{what}: 0/0")
+                        if metric == "linf":
+                            check(bool(torch.isnan(got[2]).all()),
+                                  f"{what}: NaN dropped by the max")
+                    cases += 1
+    return err, bitwise, cases
+
+
+def mst_edge_parity(dev):
+    """mst_min_edge against its plain version: a 100,000-entry hub row,
+    empty rows, a self-loop, 5,000 NaN pads past indptr[-1] (never read),
+    random and all-equal weights, f32 and f64, four colorings. Exact."""
+    import torch
+
+    from raft_tpu_torch.sparse.solver import mst_grid as tmg
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    cases = 0
+    for dtype in (torch.float32, torch.float64):
+        n = 20000
+        indptr, indices, data = make_csr(gen, dev, n, n, max_len=40,
+                                         hubs=[(7, 100000), (n - 1, 3000)],
+                                         pad=5000, dtype=dtype)
+        r = int(torch.nonzero(indptr[1:] > indptr[:-1])[0, 0])
+        indices[int(indptr[r])] = r                 # a self-loop
+        for weights in (data.abs() + 0.01,
+                        torch.where(torch.isnan(data), data, 1.0)):
+            plan = tmg.MSTPlan(indptr=indptr, indices=indices, data=weights,
+                               n=n, n_cols=n, n_edges=int(indptr[-1]))
+            for colors in (torch.arange(n, device=dev),
+                           torch.randint(0, 50, (n,), generator=gen,
+                                         device=dev),
+                           torch.randint(0, 2, (n,), generator=gen,
+                                         device=dev),
+                           torch.zeros(n, device=dev)):
+                colors = colors.to(torch.int32)
+                got = tmg._min_edge(plan, colors)
+                again = tmg._min_edge(plan, colors)
+                want = tmg._min_edge_plain(indptr, indices, weights, colors,
+                                           n, n)
+                for a, b, c in zip(got, again, want):
+                    check(a.dtype == c.dtype and torch.equal(a, b)
+                          and torch.equal(a, c),
+                          f"mst_min_edge {dtype}: kernel differs from plain")
+                cases += 1
+    return cases
+
+
+def probe_parity(dev):
+    """minonly against its plain version at all three tiers over several
+    database splits: bitwise on integer-valued inputs (every sum exact),
+    indices equal but at near-ties and values within REL on normal ones
+    (recording whether they were bitwise equal too)."""
+    import torch
+
+    from raft_tpu_torch.linalg import contractions as tc
+    from raft_tpu_torch.neighbors import fused_topk as tft
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    m, n, kd = 517, 30001, 45
+    err, bitwise, mismatches = 0.0, {}, 0
+    for tier in ("default", "high", "highest"):
+        for integer in (True, False):
+            x = torch.randn(m, kd, generator=gen, device=dev)
+            y = torch.randn(n, kd, generator=gen, device=dev)
+            if integer:
+                x, y = torch.round(2 * x), torch.round(2 * y)
+            y[29000] = y[17]                     # tie: column 17 first
+            x[0] = y[17]
+            xs, ys = tc._side(x, tier), tc._side(y, tier)
+            got = tft._minonly(tier, xs, ys, m, n, kd)
+            again = tft._minonly(tier, xs, ys, m, n, kd)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"minonly {tier}: two runs differ")
+            want = tft._minonly_plain(tier, xs, ys, m, n, kd)
+            check(int(got[1][0]) == 17, f"minonly {tier}: tie order")
+            same = torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                 want[1])
+            what = f"minonly {tier}{' int' if integer else ''}"
+            if integer:
+                check(same, f"{what}: not bitwise equal to plain")
+            else:
+                bitwise[tier] = same
+                scale = ((x.double() ** 2).sum(1)
+                         + (y.double() ** 2).sum(1).max()).float()
+                mismatches += labels_agree(
+                    got[1], want[1], plain_rows(tier, "l2", xs, ys, n, kd),
+                    scale, REL, what).numel()
+                ok = got[1] == want[1]
+                e = (got[0] - want[0]).abs()[ok]
+                check(bool((e <= REL * scale[ok] + 1e-6).all()),
+                      f"{what}: values off by {float(e.max())}")
+                err = max(err, float(e.max()))
+    return err, bitwise, mismatches
+
+
+def new_kernel_parity(dev):
+    err_u, bit_u, cases_u = unexpanded_parity(dev)
+    cases_m = mst_edge_parity(dev)
+    err_p, bit_p, mis_p = probe_parity(dev)
+    errs = {"unexpanded_tile": err_u, "mst_min_edge": 0.0, "minonly": err_p}
+    emit("new_kernel_parity", unexpanded_cases=cases_u,
+         unexpanded_bitwise_to_plain=bit_u, mst_min_edge_cases=cases_m,
+         minonly_bitwise_to_plain_on_normal_data=bit_p,
+         minonly_near_tie_mismatches=mis_p, max_abs_err=errs,
+         tolerance=f"unexpanded: |kernel - plain| <= 1e-5 sqrt(k) x value "
+                   f"+ 1e-6, exact for {list(UNEXP_EXACT)} on integer "
+                   f"inputs, NaN positions equal; mst_min_edge exact; "
+                   f"minonly bitwise on integer inputs, else indices equal "
+                   f"but within {REL} x (|x|^2 + max|y|^2) and values "
+                   f"within that band")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 11: unexpanded pairwise distances, BASELINE config 1's shape
+# ---------------------------------------------------------------------------
+
+
+# DistanceType -> (kernel metric, epilogue) as pairwise_distance applies it
+UNEXP_DISTANCES = {
+    "L2Unexpanded": ("l2un", lambda d, k: d),
+    "L2SqrtUnexpanded": ("l2un", lambda d, k: d.sqrt()),
+    "L1": ("l1", lambda d, k: d),
+    "Linf": ("linf", lambda d, k: d),
+    "Canberra": ("canberra", lambda d, k: d),
+    "LpUnexpanded": ("lp", lambda d, k: d ** (1.0 / 3.0)),
+    "HammingUnexpanded": ("hamming", lambda d, k: d / k),
+}
+
+
+def unexpanded_pairwise_phase(res, dev):
+    """The seven unexpanded metrics through pairwise_distance at 5000 x 50
+    (y = None): one unexpanded_tile launch each, the diagonal exactly 0,
+    the rest against the plain version on the card (the same epilogue
+    over unexpanded_ref). Returns the launches and the max error."""
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.distance import DistanceType, pairwise_distance
+    from raft_tpu_torch.linalg import contractions as tc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    x = blobs(gen, dev, PAIRWISE_M, PAIRWISE_K, 10)
+    x[:, :5] = torch.round(x[:, :5])            # some exact matches
+    k = PAIRWISE_K
+    out, total, err = {}, 0, 0.0
+    for name, (km, epi) in UNEXP_DISTANCES.items():
+        metric = DistanceType[name]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = pairwise_distance(res, x, metric=metric, p=3.0)
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in kernels.launch_counts().items() if c}
+        check(launches == {"unexpanded_tile": 1},
+              f"pairwise_distance {name}: launches {launches}")
+        total += 1
+        check(bool((got.diagonal() == 0).all()), f"{name}: diagonal")
+        want = epi(tc.unexpanded_ref(x, x, km, 3.0), k)
+        want.fill_diagonal_(0.0)
+        e = (got - want).abs()
+        check(bool((e <= unexp_rel(k) * want.abs() + 1e-6).all()),
+              f"pairwise_distance {name}: max err {float(e.max())}")
+        err = max(err, float(e.max()))
+        out[name] = {"ms": cuda_ms(lambda: pairwise_distance(
+                         res, x, metric=metric, p=3.0), 5),
+                     "max_abs_err": float(e.max()),
+                     "bitwise_to_plain": torch.equal(got, want),
+                     "launches": launches}
+        del got, want, e
+    lib = {"L1 torch.cdist(p=1)": lambda: torch.cdist(x, x, p=1.0),
+           "Linf torch.cdist(p=inf)": lambda: torch.cdist(x, x,
+                                                          p=float("inf")),
+           "L2Sqrt torch.cdist(p=2, donot_use_mm)": lambda: torch.cdist(
+               x, x, compute_mode="donot_use_mm_for_euclid_dist"),
+           "Hamming torch.cdist(p=0) / k": lambda: torch.cdist(x, x,
+                                                               p=0.0) / k}
+    emit("unexpanded_pairwise", shape=[PAIRWISE_M, PAIRWISE_K], metrics=out,
+         library_ms={n_: cuda_ms(f, 5) for n_, f in lib.items()},
+         tolerance="|kernel - plain| <= 1e-5 sqrt(k) x value + 1e-6; "
+                   "diagonal exactly 0")
+    return total, err
+
+
+# ---------------------------------------------------------------------------
+# phase 12: unexpanded kNN at the kNN path's width
+# ---------------------------------------------------------------------------
+
+
+def exact_topk_check(idx, vals, exact, k, what):
+    """The returned columns' exact distances, sorted, equal the exact top
+    k within the tie band (1e-5 sqrt(d) of the k-th distance); the
+    returned values within that band of their exact ones. Returns (max
+    gap, rows whose index set is the exact one)."""
+    import torch
+
+    got = exact.gather(1, idx.long())
+    best = torch.topk(exact, k, dim=1, largest=False)
+    band = unexp_rel(KNN_D) * best.values[:, -1:] + 1e-6
+    gap = (torch.sort(got, dim=1).values - best.values).abs()
+    check(bool((gap <= band).all()),
+          f"{what}: off the exact top k by {float(gap.max())}")
+    e = (vals.double() - got).abs()
+    check(bool((e <= band).all()), f"{what}: distances off by "
+          f"{float(e.max())}")
+    rows = int((torch.sort(idx.long(), 1).values
+                == torch.sort(best.indices, 1).values).all(1).sum())
+    return float(gap.max()), rows
+
+
+def unexpanded_knn_phase(res, dev, db, q):
+    """knn with l1 at 4096 queries, k = 64 (the radix route, 32 chunks of
+    32,768 columns through unexpanded_tile, radix_threshold and
+    radix_emit), then linf and canberra at 256 queries; indices against
+    an exact f64 search on the card for 256 queries. Returns the launches
+    and the l1 call's ms."""
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.linalg import contractions as tc
+    from raft_tpu_torch.neighbors import knn, knn_plan
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    sample = torch.randperm(KNN_Q, generator=gen, device=dev)[:UNEXP_Q]
+    db64 = db.double()
+    total = {}
+    calls = {}
+    for metric, nq in (("l1", KNN_Q), ("linf", UNEXP_Q),
+                       ("canberra", UNEXP_Q)):
+        qq = q if nq == KNN_Q else q[sample]
+        path, chunk = knn_plan(nq, KNN_N, UNEXP_K, metric)
+        check(path == "radix", f"knn {metric}: route {path}, want radix")
+        n_chunks = -(-KNN_N // chunk)
+        check(metric != "l1" or n_chunks == 32,
+              f"knn l1: {n_chunks} chunks, want 32")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        vals, idx = knn(res, db, qq, UNEXP_K, metric=metric)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n_: c for n_, c in kernels.launch_counts().items() if c}
+        want = {"unexpanded_tile": n_chunks, "radix_threshold": n_chunks,
+                "radix_emit": n_chunks}
+        check(counts == want, f"knn {metric}: launches {counts}, want "
+              f"{want}")
+        for n_, c in counts.items():
+            total[n_] = total.get(n_, 0) + c
+        check(tuple(idx.shape) == (nq, UNEXP_K) and idx.dtype == torch.int32
+              and bool(torch.isfinite(vals).all())
+              and bool((vals[:, 1:] >= vals[:, :-1]).all()),
+              f"knn {metric}: output")
+        ms = cuda_ms(lambda: knn(res, db, qq, UNEXP_K, metric=metric), 2)
+        rows = sample if nq == KNN_Q else torch.arange(UNEXP_Q, device=dev)
+        q64 = qq[rows].double()
+        if metric == "l1":
+            exact = torch.cdist(q64, db64, p=1.0)
+        elif metric == "linf":
+            exact = torch.cdist(q64, db64, p=float("inf"))
+        else:
+            exact = tc.unexpanded_ref(q64, db64, "canberra")
+        gap, exact_rows = exact_topk_check(idx[rows], vals[rows], exact,
+                                           UNEXP_K, f"knn {metric}")
+        calls[metric] = dict(queries=nq, route=path, chunk=chunk, wall_s=wall,
+                             ms=ms, launches=counts, max_gap_to_exact=gap,
+                             sample_rows_with_exact_set=exact_rows)
+        del vals, idx, exact
+        torch.cuda.empty_cache()
+    emit("unexpanded_knn", db=[KNN_N, KNN_D], k=UNEXP_K, checked=UNEXP_Q,
+         calls=calls, launches=total,
+         tolerance="exact f64 top-k distances (torch.cdist p=1 / p=inf, "
+                   "f64 unexpanded_ref for canberra) within 1e-5 sqrt(d) "
+                   "of the k-th of the returned columns'")
+    return total, calls
+
+
+def unexpanded_numbers(db, q, launches, parity_err):
+    """unexpanded_tile's row at the l1 kNN route's chunk (4096 x 32,768 x
+    128, the first chunk of the path's own data): held against its plain
+    version there, timed beside it, beside torch.cdist(p=1) and beside
+    its bound; the other metrics' times at the same shape."""
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.linalg import contractions as tc
+    from raft_tpu_torch.neighbors import knn_plan
+
+    nq, d = q.shape
+    cw = knn_plan(nq, KNN_N, UNEXP_K, "l1")[1]
+    y = db[:cw].contiguous()
+    with torch.no_grad():
+        got = tc._unexpanded_tile("l1", 2.0, q, y)
+        want = tc.unexpanded_ref(q, y, "l1")
+        e = (got - want).abs()
+        check(bool((e <= unexp_rel(d) * want + 1e-6).all()),
+              f"unexpanded_tile at the kNN chunk: max err {float(e.max())}")
+        err = float(e.max())
+        bitwise = torch.equal(got, want)
+        del got, want, e
+        per_metric = {}
+        for metric, instr in UNEXP_INSTR.items():
+            per_metric[metric] = dict(
+                ms=cuda_ms(lambda: tc._unexpanded_tile(metric, 3.0, q, y), 3),
+                bound_ms=unexp_bound(nq, cw, d, instr)[0])
+        lib = {"l1": lambda: torch.cdist(q, y, p=1.0),
+               "linf": lambda: torch.cdist(q, y, p=float("inf")),
+               "l2un": lambda: torch.cdist(
+                   q, y, compute_mode="donot_use_mm_for_euclid_dist"),
+               "hamming": lambda: torch.cdist(q, y, p=0.0)}
+        for metric, fn in lib.items():
+            per_metric[metric]["library_ms"] = cuda_ms(fn, 3)
+        b, by = unexp_bound(nq, cw, d, UNEXP_INSTR["l1"])
+        spec = kernels.REGISTRY["unexpanded_tile"]
+        row = {"name": "unexpanded_tile", "route": "cuda",
+               "source": f"raft_tpu_torch/{spec.source}",
+               "replaces": spec.replaces,
+               "launches": launches["unexpanded_tile"],
+               "max_abs_err": max(err, parity_err),
+               "ms": per_metric["l1"]["ms"],
+               "plain_ms": cuda_ms(lambda: tc.unexpanded_ref(q, y, "l1"), 2),
+               "bound_ms": b, "bound_by": by,
+               "library_ms": per_metric["l1"]["library_ms"],
+               "library_call": "torch.cdist(x, y, p=1)", "parity": "pass",
+               "shape": [nq, cw, d], "metric": "l1",
+               "bitwise_to_plain_at_this_shape": bitwise,
+               "instr_per_element": UNEXP_INSTR, "by_metric": per_metric}
+    return row
+
+
+def unexp_bound(m, n, k, instr):
+    """Lane instructions over the f32 issue rate, or the operand and
+    output bytes over the HBM rate, whichever is larger."""
+    t_ops = instr * m * n * k / PEAK_LANE_INSTR * 1e3
+    t_bytes = 4 * (m * k + n * k + m * n) / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "bytes" if t_bytes > t_ops else "operations"
+
+
+# ---------------------------------------------------------------------------
+# phase 13: Borůvka MST on bench_mst's R-MAT graph at full size
+# ---------------------------------------------------------------------------
+
+
+def mst_phase(res, dev):
+    """mst(res, g) on benches/bench_prims.py:967-981's graph (R-MAT scale
+    20, 10M edges, self-loops dropped, weights uniform in [0.01, 1.01)
+    f32, duplicates summed, symmetrized with max), built on the card;
+    warm, then counted and timed. Checks: n - n_components forest edges,
+    the f64 total weight equal to scipy's exactly, and the kernel route's
+    forest and colors bitwise equal to the plain E-stage's on the card."""
+    import importlib
+
+    import numpy as np
+    import torch
+    from scipy.sparse import csgraph
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.random import RngState, rmat_rectangular_gen
+    from raft_tpu_torch.sparse.solver import mst
+    from raft_tpu_torch.sparse.solver import mst_grid as tmg
+
+    tmst = importlib.import_module("raft_tpu_torch.sparse.solver.mst")
+    t0 = time.perf_counter()
+    n = 1 << RMAT_SCALE
+    src, dst = rmat_rectangular_gen(res, RngState(SEED + 17), RMAT_SCALE,
+                                    RMAT_SCALE, RMAT_EDGES)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    w = torch.rand(src.shape[0], generator=gen, device=dev) + 0.01
+    g = csr_from_edges(src, dst, n, w)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del src, dst, w
+    stats = graph_stats(g)
+
+    mst(res, g)                                     # warm
+    colors = np.arange(n, dtype=np.int32)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    forest = mst(res, g, color=colors)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    rounds = launches["mst_min_edge"]
+    check(rounds > 0, "mst never launched mst_min_edge")
+    # a call's wall time: the rounds poll the host, so the device time
+    # between two events around whole calls is the wall time
+    call_ms = cuda_ms(lambda: mst(res, g), 3)
+
+    # where a round's time goes: the kernel, then the V-sized torch work,
+    # then the host poll, with CUDA events around each part
+    plan = tmg.prepare_mst(g)
+    c = torch.arange(n, dtype=torch.int32, device=dev)
+    per_round = []
+    for _ in range(rounds):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        vmin = tmg._min_edge(plan, c)
+        ev[1].record()
+        c, _, _, n_incl = tmst._color_stage(c, plan, n, *vmin)
+        ev[2].record()
+        int(n_incl)
+        per_round.append((ev[0].elapsed_time(ev[1]),
+                          ev[1].elapsed_time(ev[2])))
+    k_ms = sum(a for a, _ in per_round)
+    v_ms = sum(b for _, b in per_round)
+
+    # checks, after the counted run
+    half = forest.n_edges // 2
+    total = float(forest.weights[:half].double().sum())
+    host = g.to_scipy().astype(np.float64)
+    t0 = time.perf_counter()
+    ref = csgraph.minimum_spanning_tree(host)
+    n_comp = int(csgraph.connected_components(host, directed=False)[0])
+    scipy_s = time.perf_counter() - t0
+    ref_total = float(ref.sum())
+    check(half == n - n_comp, f"forest has {half} edges, want {n - n_comp}")
+    check(total == ref_total, f"forest weight {total!r} != scipy's "
+          f"{ref_total!r}")
+    plain = lambda p_, c_: tmg._min_edge_plain(  # noqa: E731
+        p_.indptr, p_.indices, p_.data, c_, p_.n_cols, p_.n)
+    pc, pmask, prounds = tmst._solve(
+        plan, torch.arange(n, dtype=torch.int32, device=dev), plain)
+    pforest = tmst._forest_output(plan, pmask, True)
+    check(prounds == rounds and np.array_equal(pc.cpu().numpy(), colors)
+          and all(torch.equal(getattr(forest, f), getattr(pforest, f))
+                  for f in ("src", "dst", "weights")),
+          "mst: kernel route and plain route differ")
+    plain_round_ms = cuda_ms(lambda: plain(plan, torch.arange(
+        n, dtype=torch.int32, device=dev)), 3)
+    out = dict(graph=stats, build_s=build_s, rounds=rounds, host_polls=rounds,
+               wall_s=wall, ms=call_ms,
+               kernel_ms_total=k_ms, v_stage_ms_total=v_ms,
+               per_round_kernel_v_ms=per_round, forest_edges=half,
+               components=n_comp, total_weight=total,
+               scipy_total_weight=ref_total, scipy_s=scipy_s,
+               plain_e_stage_round_ms=plain_round_ms,
+               launches={k: v for k, v in launches.items() if v})
+    emit("mst", **out)
+    return g, plan, launches, out
+
+
+def mst_numbers(plan, launches):
+    """mst_min_edge's row at the MST graph's first round (every vertex its
+    own color): kernel, plain version and bound; no library call
+    computes it."""
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.sparse.solver import mst_grid as tmg
+
+    n, nnz = plan.n, plan.n_edges
+    c = torch.arange(n, dtype=torch.int32, device=plan.device)
+    got = tmg._min_edge(plan, c)
+    want = tmg._min_edge_plain(plan.indptr, plan.indices, plan.data, c,
+                               plan.n_cols, n)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "mst_min_edge at the MST graph: kernel differs from plain")
+    idx_bytes = plan.indptr.element_size()
+    nbytes = (nnz * (4 + 4 + 4) + (n + 1) * idx_bytes + 4 * n
+              + n * (4 + 8 + 4))
+    ms = cuda_ms(lambda: tmg._min_edge(plan, c), 20)
+    spec = kernels.REGISTRY["mst_min_edge"]
+    return {"name": "mst_min_edge", "route": "cuda",
+            "source": f"raft_tpu_torch/{spec.source}",
+            "replaces": spec.replaces, "launches": launches["mst_min_edge"],
+            "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": cuda_ms(lambda: tmg._min_edge_plain(
+                plan.indptr, plan.indices, plan.data, c, plan.n_cols, n), 3),
+            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "library_ms": None, "library_call": "none", "parity": "pass",
+            "shape": [n, n], "nnz": nnz, "bytes": nbytes,
+            "achieved_gb_s": nbytes / ms / 1e6}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the 1-NN floor probe at the kNN shape
+# ---------------------------------------------------------------------------
+
+
+def cdist_min(q, db, rows=131072):
+    """The probe's library yardstick: cdist over database chunks, the
+    chunk minima folded in order (the earlier chunk wins ties)."""
+    import torch
+
+    best_v = best_i = None
+    for off in range(0, db.shape[0], rows):
+        v, i = torch.cdist(q, db[off:off + rows]).min(1)
+        if best_v is None:
+            best_v, best_i = v, i + off
+        else:
+            better = v < best_v
+            best_v = torch.where(better, v, best_v)
+            best_i = torch.where(better, i + off, best_i)
+    return best_v, best_i
+
+
+def probe_phase(res, dev, db, q, parity_err):
+    """_minonly_probe at the kNN shape, 'high', counted; timed beside
+    fused_topk at k = 1 and k = 64 on the same operands, so the gap is
+    the selection's share; indices against fused_argmin's on the same
+    operands and against the plain version at 256 queries."""
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.linalg import contractions as tc
+    from raft_tpu_torch.neighbors import fused_topk as tft
+    from raft_tpu_torch.util import precision as tprec
+
+    nq, d = q.shape
+    n = db.shape[0]
+    with tprec.scope("high"):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        vals, idx = tft._minonly_probe(q, db)
+        torch.cuda.synchronize()
+        launches = {n_: c for n_, c in kernels.launch_counts().items() if c}
+        check(launches == {"minonly": 1}, f"probe launches {launches}")
+        call_ms = cuda_ms(lambda: tft._minonly_probe(q, db), 2)
+    with torch.no_grad():
+        xs, ys = tc._side(q, "high"), tc._side(db, "high")
+        ms = cuda_ms(lambda: tft._minonly("high", xs, ys, nq, n, d), 3)
+        topk_ms = {kk: cuda_ms(lambda: tft._fused_topk(
+            "high", "l2", xs, ys, nq, n, d, kk), 2) for kk in (1, 64)}
+        scale = ((q.double() ** 2).sum(1)
+                 + (db.double() ** 2).sum(1).max()).float()
+        av, ai = tc._fused_argmin("high", "l2", xs, ys, nq, n, d)
+        pq = side_rows(xs, slice(0, PLAIN_Q))
+        bad_argmin = labels_agree(
+            idx, ai, lambda r: tc._pairwise_plain(
+                "high", "l2", side_rows(xs, r), ys, r.numel(), n, d),
+            scale, REL, "probe vs fused_argmin").numel()
+        pv, pi = tft._minonly_plain("high", pq, ys, PLAIN_Q, n, d)
+        bad_plain = labels_agree(idx[:PLAIN_Q], pi,
+                                 plain_rows("high", "l2", pq, ys, n, d),
+                                 scale[:PLAIN_Q], REL,
+                                 "probe vs plain").numel()
+        ok = idx[:PLAIN_Q] == pi
+        e = (vals[:PLAIN_Q] - pv).abs()[ok]
+        check(bool((e <= REL * scale[:PLAIN_Q][ok] + 1e-6).all()),
+              f"probe values off the plain version by {float(e.max())}")
+        err = max(float(e.max()), parity_err)
+        plain_ms = cuda_ms(lambda: tft._minonly_plain("high", pq, ys,
+                                                      PLAIN_Q, n, d), 2)
+        lib_ms = cuda_ms(lambda: cdist_min(q, db), 1)
+        del av, ai, pv, pi
+    b, by = bound("high", nq, n, d, 8 * nq)
+    share = {kk: 1.0 - ms / t for kk, t in topk_ms.items()}
+    emit("probe", shape=[nq, n, d], tier="high", call_ms=call_ms, ms=ms,
+         fused_topk_ms=topk_ms, selection_share_of_fused_topk=share,
+         differing_from_fused_argmin=bad_argmin,
+         differing_from_plain_at_plain_q=bad_plain, launches=launches)
+    spec = kernels.REGISTRY["minonly"]
+    return {"name": "minonly", "route": "cuda",
+            "source": f"raft_tpu_torch/{spec.source}",
+            "replaces": spec.replaces, "launches": launches.get("minonly", 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+            "library_call": "torch.cdist(q, db_chunk).min(1) over 131,072-"
+                            "row chunks, folded in order",
+            "parity": "pass", "shape": [nq, n, d], "tier": "high",
+            "plain_q": PLAIN_Q, "fused_topk_ms": topk_ms,
+            "selection_share_of_fused_topk": share}
+
+
 def main():
     import torch
 
@@ -1619,7 +2283,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    from raft_tpu_torch import device_resources
+    from raft_tpu_torch import device_resources, kernels
     from raft_tpu_torch.kernels import build
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1649,9 +2313,11 @@ def main():
     parity_errs = parity(dev)
     parity_errs.update(topk_parity(dev))
     parity_errs.update(sparse_parity(dev))
+    parity_errs.update(new_kernel_parity(dev))
     x, c, ops, launches = main_path(res, dev)
     small_fit_matches_cpu(res, dev)
     pairwise_phase(res, dev)
+    unexp_launches, unexp_err = unexpanded_pairwise_phase(res, dev)
     table = kernel_numbers(x, c, ops, parity_errs, launches)
     del x, c, ops
     torch.cuda.empty_cache()
@@ -1668,6 +2334,12 @@ def main():
     next(r for r in table if r["name"] == "pairwise_tile")[
         "knn_chunk_shape"] = pairwise_chunk
     table += topk_table
+    knn_unexp_launches, _ = unexpanded_knn_phase(res, dev, db, q)
+    unexp_launches += knn_unexp_launches["unexpanded_tile"]
+    table.append(unexpanded_numbers(
+        db, q, {"unexpanded_tile": unexp_launches},
+        max(parity_errs["unexpanded_tile"], unexp_err)))
+    table.append(probe_phase(res, dev, db, q, parity_errs["minonly"]))
     del db, q, v_radix, v_ins, v_desc
     torch.cuda.empty_cache()
 
@@ -1678,6 +2350,13 @@ def main():
     table += sparse_numbers(g, x, b16, sparse_launches, {
         n: max(parity_errs[n], c4["max_abs_err"][n], part_errs[n])
         for n in sparse_launches})
+    del g, x, b16
+    torch.cuda.empty_cache()
+    _, mst_plan, mst_launches, _ = mst_phase(res, dev)
+    table.append(mst_numbers(mst_plan, mst_launches))
+    check(len(table) == len(kernels.REGISTRY)
+          and {r["name"] for r in table} == set(kernels.REGISTRY),
+          "the kernels line does not list every registered kernel")
     RECORD["kernels"] = table
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

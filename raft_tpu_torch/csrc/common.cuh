@@ -1,8 +1,8 @@
 // Shared tile machinery of the port's contraction kernels (pairwise_tile.cu,
-// fused_argmin.cu, fused_lloyd.cu): the operand formats of the three
-// precision tiers, the shared-memory staging of X and Y tiles, the cross-
-// product tile on CUDA-core FMAs, the distance epilogue and the (value,
-// index) order of the argmin.
+// fused_argmin.cu, fused_lloyd.cu, fused_topk.cu, minonly.cu): the operand
+// formats of the three precision tiers, the shared-memory staging of X and
+// Y tiles, the cross-product tile on CUDA-core FMAs, the distance epilogue
+// and the (value, index) order of the argmin.
 //
 // Operand block, the same in every entry point:
 //   x0, x1 : X rows [m, >= k], row stride ldx elements
@@ -183,17 +183,17 @@ __device__ __forceinline__ bool before(float v, int i, float bv, int bi) {
   return v < bv || (v == bv && i < bi);
 }
 
-// Per-row (min, argmin) of the metric over all n columns for the block's
-// row tile at row0, without materialising the tile row: each thread folds
-// its columns tile by tile, then the 16 threads sharing a row (one half-
-// warp) combine by shuffles. On return every thread holds the results for
-// its rows sub_index(ty, i).
+// Per-row (min, argmin) of the metric over columns [c_begin, c_end) (c_begin
+// a multiple of BN, c_end <= n) for the block's row tile at row0, without
+// materialising the tile row: each thread folds its columns tile by tile,
+// then the 16 threads sharing a row (one half-warp) combine by shuffles. On
+// return every thread holds the results for its rows sub_index(ty, i).
 template <int TIER, int METRIC, bool FINITE>
-__device__ __forceinline__ void block_argmin(
+__device__ __forceinline__ void block_argmin_range(
     float (&bv)[TM], int (&bi)[TM], TileSmem<TIER>& s, const void* x0,
     const void* x1, const float* xn, int64_t ldx, int row0, int m,
     const void* y0, const void* y1, const float* yn, int64_t ldy, int n,
-    int k) {
+    int k, int c_begin, int c_end) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float xt[TM];
 #pragma unroll
@@ -204,7 +204,7 @@ __device__ __forceinline__ void block_argmin(
     bi[i] = 0x7fffffff;
   }
   float acc[TM][TN];
-  for (int col0 = 0; col0 < n; col0 += BN) {
+  for (int col0 = c_begin; col0 < c_end; col0 += BN) {
     cross_tile<TIER>(acc, s, x0, x1, ldx, row0, m, y0, y1, ldy, col0, n, k);
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
@@ -232,6 +232,17 @@ __device__ __forceinline__ void block_argmin(
         bi[i] = oi;
       }
     }
+}
+
+// block_argmin_range over all n columns.
+template <int TIER, int METRIC, bool FINITE>
+__device__ __forceinline__ void block_argmin(
+    float (&bv)[TM], int (&bi)[TM], TileSmem<TIER>& s, const void* x0,
+    const void* x1, const float* xn, int64_t ldx, int row0, int m,
+    const void* y0, const void* y1, const float* yn, int64_t ldy, int n,
+    int k) {
+  block_argmin_range<TIER, METRIC, FINITE>(bv, bi, s, x0, x1, xn, ldx, row0,
+                                           m, y0, y1, yn, ldy, n, k, 0, n);
 }
 
 }  // namespace raft_port

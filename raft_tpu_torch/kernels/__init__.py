@@ -157,6 +157,45 @@ REGISTRY: Dict[str, KernelSpec] = {
             replaces="raft_tpu/sparse/grid_spmv.py:653",
             parity_test="tests/test_torch_sparse.py"
                         "::test_spmm_matches_reference"),
+        KernelSpec(
+            name="unexpanded_tile",
+            source="csrc/unexpanded_tile.cu",
+            symbol="raft_unexpanded_tile",
+            # dtype, metric, p_bits, x, ldx, y, ldy, out, m, n, k, stream
+            argtypes=(_I, _I, _L, _P, _L, _P, _L, _P, _I, _I, _I, _P),
+            plain="raft_tpu_torch.linalg.contractions.unexpanded_ref",
+            ports="raft_tpu/linalg/contractions.py:_unexpanded_tile_kernel",
+            replaces="raft_tpu/linalg/contractions.py:525",
+            parity_test="tests/test_torch_unexpanded.py"
+                        "::test_unexpanded_matches_reference"),
+        KernelSpec(
+            name="mst_min_edge",
+            source="csrc/mst_min_edge.cu",
+            symbol="raft_mst_min_edge",
+            # dtype, idx64, indptr, indices, data, colors, n_cols, out_w,
+            # out_key, out_eid, n_rows, stream
+            argtypes=(_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _I, _P),
+            plain="raft_tpu_torch.sparse.solver.mst_grid._min_edge_plain",
+            ports="raft_tpu/sparse/solver/mst_grid.py:_mst_scan_kernel, "
+                  "_mst_reduce_kernel, grid_spmv._tree_gather_kernel "
+                  "(colors[dst])",
+            replaces="raft_tpu/sparse/solver/mst_grid.py:139",
+            parity_test="tests/test_torch_mst.py"
+                        "::test_mst_matches_reference"),
+        KernelSpec(
+            name="minonly",
+            source="csrc/minonly.cu",
+            symbol="raft_minonly",
+            # tier, operands..., m, n, k, splits, part_v, part_i, val,
+            # idx, stream
+            argtypes=(_I,) + _OPERANDS + (_I, _I, _I, _I, _P, _P, _P, _P,
+                                          _P),
+            plain="raft_tpu_torch.neighbors.fused_topk._minonly_plain",
+            ports="raft_tpu/neighbors/fused_topk.py:_minonly_kernel, "
+                  "_minonly_kernel_split",
+            replaces="raft_tpu/neighbors/fused_topk.py:195",
+            parity_test="tests/test_torch_knn.py"
+                        "::test_minonly_probe_matches_reference"),
     )
 }
 

@@ -13,6 +13,7 @@ fused_argmin_pallas,          csrc/fused_argmin.cu        _argmin_plain
 fused_l2_argmin_pallas
 fused_lloyd_pallas,           csrc/fused_lloyd.cu         _lloyd_plain
 fused_lloyd_prepared
+pairwise_unexpanded_pallas    csrc/unexpanded_tile.cu     unexpanded_ref
 ============================  ==========================  ================
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
@@ -26,7 +27,8 @@ at ``'high'`` each f32 side is split once into bf16 hi/lo halves plus
 f32 squared row norms (:func:`_split_side`, plain torch outside the
 kernel, as in the reference package); at ``'default'`` and ``'highest'``
 the kernel reads f32 rows and the norms are computed the same way.
-Inputs of any float dtype are taken as f32.
+Inputs of any float dtype are taken as f32, except by the unexpanded
+family (:func:`pairwise_unexpanded_pallas`), which keeps f64 as f64.
 
 The TPU tile knobs of the reference functions (``tm``, ``tn``,
 ``packed``, ``counts_mxu``) have no counterpart: the CUDA kernels use
@@ -39,6 +41,7 @@ What is left to plan is the persistent grid of the Lloyd pass
 
 from __future__ import annotations
 
+import struct
 from collections import namedtuple
 from typing import Optional, Tuple
 
@@ -408,3 +411,116 @@ def fused_lloyd_pallas(x, y) -> Tuple[torch.Tensor, torch.Tensor,
     tier = current_mode()
     return _fused_lloyd(tier, _side(x, tier), _side(y, tier),
                         x.shape[0], y.shape[0], x.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# unexpanded metrics (no GEMM form): csrc/unexpanded_tile.cu
+# ---------------------------------------------------------------------------
+
+UNEXPANDED_METRICS = ("l1", "linf", "canberra", "lp", "hamming", "l2un")
+_UNEXPANDED_CODE = {m: i for i, m in enumerate(UNEXPANDED_METRICS)}
+_UNEXPANDED_DTYPE = {torch.float32: 0, torch.float64: 1}
+
+
+def _unexpanded_term(metric: str, a, b, p: float):
+    """One depth's term f(a, b) of the metric, broadcast over a [m, 1]
+    and b [1, n]."""
+    if metric in ("l1", "linf"):
+        return (a - b).abs()
+    if metric == "l2un":
+        d = a - b
+        return d * d
+    if metric == "canberra":
+        den = a.abs() + b.abs()
+        pos = den > 0
+        return torch.where(pos, (a - b).abs() / torch.where(pos, den, 1.0),
+                           0.0)
+    if metric == "lp":
+        return (a - b).abs() ** p
+    return (a != b).to(a.dtype)                  # hamming
+
+
+def unexpanded_ref(x, y, metric: str, p: float = 2.0) -> torch.Tensor:
+    """Plain version of the unexpanded tile, and the reference's oracle:
+    raw reductions (the caller applies lp's ``^(1/p)``, hamming's ``/k``
+    and l2un's sqrt), in f64 where an operand is f64, else f32.
+
+    Each output sums its terms one depth at a time, in order, as the
+    kernel does, so the two agree bit for bit but for lp's pow; linf's
+    max propagates NaN; canberra gives 0 where ``|a| + |b| > 0`` fails
+    (0/0, or a NaN denominator); hamming counts ``a != b`` (NaN != NaN
+    counts 1). Memory: a few [m, n] tensors, never [m, n, k]."""
+    if metric not in UNEXPANDED_METRICS:
+        raise ValueError(f"metric must be one of {UNEXPANDED_METRICS}")
+    x, y = _unexpanded_pair(x, y)
+    acc = torch.zeros((x.shape[0], y.shape[0]), dtype=x.dtype,
+                      device=x.device)
+    for c in range(x.shape[1]):
+        v = _unexpanded_term(metric, x[:, c:c + 1], y[None, :, c], p)
+        acc = torch.maximum(acc, v) if metric == "linf" else acc + v
+    return acc
+
+
+def _unexpanded_pair(x, y):
+    """x [m, k] and y [n, k] in the working type: f64 where either is
+    f64, else f32 (bf16 is cast exactly, as the TPU kernel casts)."""
+    x, y = as_tensor(x), as_tensor(y)
+    dt = (torch.float64 if torch.float64 in (x.dtype, y.dtype)
+          else torch.float32)
+    x, y = x.to(dt), y.to(dt)
+    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
+        raise ValueError(f"expected x [m, k] and y [n, k], got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    if min(x.shape[0], y.shape[0], x.shape[1]) < 1:
+        raise ValueError("empty operand")
+    if x.device != y.device:
+        raise ValueError(f"operands on different devices: {x.device}, "
+                         f"{y.device}")
+    return x, y
+
+
+def _unexpanded_tile(metric: str, p: float, x: torch.Tensor,
+                     y: torch.Tensor) -> torch.Tensor:
+    """[m, n] raw reduction of x [m, k] against y [n, k] (both f32 or
+    both f64, unit column stride): csrc/unexpanded_tile.cu on CUDA, the
+    plain version on the CPU."""
+    if x.device.type == "cpu":
+        return unexpanded_ref(x, y, metric, p)
+    if x.device.type != "cuda" or y.device != x.device:
+        raise ValueError(f"unsupported devices {x.device}, {y.device}")
+    if x.dtype not in _UNEXPANDED_DTYPE or y.dtype != x.dtype:
+        raise TypeError(f"x and y must both be f32 or both f64, got "
+                        f"{x.dtype} and {y.dtype}")
+    if x.stride(1) != 1 or y.stride(1) != 1:
+        raise ValueError("x and y need unit column stride")
+    m, k = x.shape
+    n = y.shape[0]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    p_bits = struct.unpack("<q", struct.pack("<d", float(p)))[0]
+    kernels.launch("unexpanded_tile", x.device, _UNEXPANDED_DTYPE[x.dtype],
+                   _UNEXPANDED_CODE[metric], p_bits, x.data_ptr(),
+                   x.stride(0), y.data_ptr(), y.stride(0), out.data_ptr(), m,
+                   n, k)
+    return out
+
+
+def pairwise_unexpanded_pallas(x, y, metric: str, p: float = 2.0,
+                               tm: int = 128, tn: int = 256,
+                               kc: int = 32) -> torch.Tensor:
+    """Unexpanded pairwise metric matrix (``metric`` in
+    :data:`UNEXPANDED_METRICS`): raw reductions only, the caller applies
+    the metric's scalar epilogue (lp's ``^(1/p)``, hamming's ``/k``,
+    l2un's sqrt). bf16 and other floats are computed in f32, f64 in f64
+    (the reference's kernel takes f64 as f32; its jnp path keeps f64).
+
+    ``tm``, ``tn`` and ``kc`` are the reference's TPU tile knobs: they are
+    validated and choose nothing, since the kernel's 64 x 64 tile masks
+    ragged edges and needs no padding. CUDA kernel:
+    ``csrc/unexpanded_tile.cu``."""
+    if metric not in UNEXPANDED_METRICS:
+        raise ValueError(f"metric must be one of {UNEXPANDED_METRICS}")
+    for name, v in (("tm", tm), ("tn", tn), ("kc", kc)):
+        if int(v) < 1:
+            raise ValueError(f"{name} must be >= 1, got {v}")
+    x, y = _unexpanded_pair(x, y)
+    return _unexpanded_tile(metric, p, x.contiguous(), y.contiguous())

@@ -6,18 +6,18 @@
 
 - ``"fused"`` (k <= 256, metric l2/cosine/inner): the fused distance +
   top-k kernel (``csrc/fused_topk.cu``), no distance matrix;
-- ``"radix"`` (larger k on long databases): per database chunk one
-  ``(q, chunk)`` distance block (``csrc/pairwise_tile.cu``), its radix
-  top-k (``csrc/radix_threshold.cu`` + ``csrc/radix_emit.cu``), and a
-  merge into the running best;
+- ``"radix"`` (larger k on long databases, and every k of the
+  unexpanded metrics there): per database chunk one ``(q, chunk)``
+  distance block (``csrc/pairwise_tile.cu``, or ``csrc/unexpanded_tile.cu``
+  for ``l1``/``linf``/``canberra``), its radix top-k
+  (``csrc/radix_threshold.cu`` + ``csrc/radix_emit.cu``), and a merge
+  into the running best;
 - ``"scan"`` otherwise: the same per tile with the stable key sort of
   ``lax.top_k``'s order in place of the radix select.
 
-Not ported yet: the unexpanded metrics ``l1``/``linf``/``canberra``
-(they need the unexpanded tile kernel, ROADMAP.md queue B item 4), the
-work-budget admission of ``runtime.limits`` (queue A item 13; the port
-has no budget, so the dispatch is the reference's with no budget
-active), the dispatch trace event (obs, queue A item 13) and
+Not ported yet: the work-budget admission of ``runtime.limits`` (queue A
+item 13; the port has no budget, so the dispatch is the reference's with
+no budget active), the dispatch trace event (obs, queue A item 13) and
 ``knn_mnmg`` (comms, queue A item 7).
 """
 
@@ -79,21 +79,23 @@ def _clamp_tile(tile: int, k: int, n: int) -> int:
 
 def _distance_blocks(queries, db, width: int, metric: str):
     """``(offset, (q, width) distance block)`` over the database in
-    column blocks of ``width``, one pairwise-tile launch each; a short
+    column blocks of ``width``, one pairwise-tile launch each (one
+    unexpanded-tile launch for ``l1``/``linf``/``canberra``); a short
     last block is padded with +inf (the reference masks its padded
     database rows to +inf)."""
-    if metric in _UNEXPANDED:
-        raise NotImplementedError(
-            f"metric {metric!r}: the unexpanded-metric kernel is not ported "
-            "yet (ROADMAP.md queue B item 4, _unexpanded_tile_kernel)")
     tier = current_mode()
     q, d = queries.shape
     n = db.shape[0]
-    xs = tc._side(queries, tier)
+    unexpanded = metric in _UNEXPANDED
+    xs = None if unexpanded else tc._side(queries, tier)
     for off in range(0, n, width):
         w = min(width, n - off)
-        ys = tc._side(db[off:off + w].contiguous(), tier)
-        dist = tc._pairwise_tile(tier, metric, xs, ys, q, w, d)
+        block = db[off:off + w].contiguous()
+        if unexpanded:
+            dist = tc._unexpanded_tile(metric, 2.0, queries, block)
+        else:
+            dist = tc._pairwise_tile(tier, metric, xs, tc._side(block, tier),
+                                     q, w, d)
         if w < width:
             dist = torch.nn.functional.pad(dist, (0, width - w),
                                            value=float("inf"))
@@ -160,7 +162,8 @@ def knn(res, db, queries, k: int, metric: str = "l2",
     indices [q, k] int32)``, nearest first.
 
     ``metric``: 'l2' (squared L2), 'sqeuclidean' (alias), 'euclidean'
-    (rooted), 'cosine', or 'inner' (largest inner product first).
+    (rooted), 'cosine', 'inner' (largest inner product first), 'l1'
+    ('manhattan', 'cityblock'), 'linf' ('chebyshev') or 'canberra'.
     ``tile``: explicit working-block width, also a memory bound on the
     chunked path's distance block. A non-tensor input goes to ``res``'s
     device (``cuda:0`` by default). Dispatch: :func:`knn_plan`."""

@@ -9,8 +9,11 @@ insertion of ``epilogue.insert_drain``), beside its plain version
 ``(distance, column)`` pairs, best-first; a NaN or +inf distance never
 enters, and empty slots are ``(+inf, 0)``.
 
-The reference's tuning probe (``_minonly_*``) is not ported (ROADMAP.md
-queue B item 13).
+The reference's tune-only 1-NN floor probe, :func:`_minonly_probe`, is
+here too: the same distance tile and grid with a running min in place of
+the insertion (CUDA kernel ``csrc/minonly.cu``, plain version
+:func:`_minonly_plain`), so the gap between the two kernels is the
+selection's price. It is not a user API.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ import torch
 from raft_tpu_torch import kernels
 from raft_tpu_torch.linalg import contractions as tc
 from raft_tpu_torch.matrix.epilogue import (MAX_K, insert_drain_plain,
-                                            resolve_tn_sw)
-from raft_tpu_torch.util.math import cdiv
+                                            masked_fold, resolve_tn_sw,
+                                            row_min_arg)
+from raft_tpu_torch.util.math import cdiv, round_up_to_multiple
 from raft_tpu_torch.util.precision import current_mode, with_matmul_precision
 
 # Blocks the kernel aims for (query tiles x database splits): eight waves
@@ -104,3 +108,67 @@ def knn_fused(queries, db, k: int, metric: str = "l2", tm: int = 256,
     tier = current_mode()
     return _fused_topk(tier, metric, tc._side(x, tier), tc._side(y, tier),
                        q, n, d, k)
+
+
+# ---------------------------------------------------------------------------
+# the 1-NN floor probe (tune-only): csrc/minonly.cu
+# ---------------------------------------------------------------------------
+
+
+def _minonly_plain(tier: str, xs, ys, m: int, n: int, kd: int,
+                   tn: int = 1024):
+    """The probe's function as the reference's ``_minonly_body`` folds it:
+    the l2 distances at the tier, then a running (min, argmin) over
+    ``tn``-wide column tiles from ``(+inf, 0)``, a tile's first minimum
+    taken only when strictly smaller (so the smaller column wins ties).
+    A NaN distance never wins (the port's rule, see ROADMAP.md queue C)."""
+    d = tc._pairwise_plain(tier, "l2", xs, ys, m, n, kd)
+    d = torch.where(torch.isnan(d), float("inf"), d)
+    state = None
+    for j0 in range(0, n, tn):
+        tile = d[:, j0:j0 + tn]
+        col = torch.arange(j0, j0 + tile.shape[1], dtype=torch.int32,
+                           device=d.device)
+        state = masked_fold(state, *row_min_arg(tile, col), 0)
+    return state[0][:, 0], state[1][:, 0]
+
+
+def _minonly(tier: str, xs, ys, m: int, n: int, kd: int, tn: int = 1024):
+    """``(vals f32 [m], idx int32 [m])``: csrc/minonly.cu on CUDA, on
+    fused_topk.cu's grid; the plain version on the CPU."""
+    if tc._on_cpu(xs, ys):
+        return _minonly_plain(tier, xs, ys, m, n, kd, tn)
+    tc._check_side(xs, tier, m, kd, "x")
+    tc._check_side(ys, tier, n, kd, "y")
+    dev = xs.v0.device
+    splits = _splits(m, n)
+    part_v = torch.empty((splits, m), dtype=torch.float32, device=dev)
+    part_i = torch.empty((splits, m), dtype=torch.int32, device=dev)
+    vals = torch.empty((m,), dtype=torch.float32, device=dev)
+    idx = torch.empty((m,), dtype=torch.int32, device=dev)
+    kernels.launch("minonly", dev, tc._TIER_CODE[tier],
+                   *tc._operand_args(xs, ys), m, n, kd, splits,
+                   part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+                   idx.data_ptr())
+    return vals, idx
+
+
+@with_matmul_precision
+def _minonly_probe(queries, db, tm: int = 256, tn: int = 1024):
+    """Tune-only probe: 1-NN under squared l2 by a running min at the fused
+    kernel's grid, ``(vals [q], idx [q])``, with :func:`knn_fused`'s tier
+    dispatch (pre-split operands at 'high'), so the floor it measures
+    prices the same distance pipeline. Not a user API: kNN callers want k
+    results.
+
+    ``tm`` and ``tn`` are the reference's TPU tiles: ``tn`` is clamped as
+    there and sets the plain version's fold width; neither chooses
+    anything in the kernel, and the result is the same for any of them.
+    CUDA kernel: ``csrc/minonly.cu``."""
+    x, y = tc._pair(queries, db)
+    q, d = x.shape
+    n = y.shape[0]
+    del tm
+    tn = max(128, min(tn - tn % 128, round_up_to_multiple(n, 128)))
+    tier = current_mode()
+    return _minonly(tier, tc._side(x, tier), tc._side(y, tier), q, n, d, tn)

@@ -1,9 +1,9 @@
 """Sparse primitives (counterpart of ``raft_tpu/sparse``): CSR/COO types,
-conversions, structural ops, SpMV/SpMM on the card and the thick-restart
-Lanczos eigensolver.
+conversions, structural ops, SpMV/SpMM on the card, the thick-restart
+Lanczos eigensolver and the Borůvka MST.
 
 Not ported yet (ROADMAP.md, queue A item 11): ``ELLMatrix``/``ell``,
-``sparse/matrix.py``, ``sparse/csr.py`` (``weak_cc``) and the MST solver.
+``sparse/matrix.py`` and ``sparse/csr.py`` (``weak_cc``).
 """
 
 from raft_tpu_torch.core.sparse_types import COOMatrix, CSRMatrix  # noqa: F401

@@ -248,7 +248,8 @@ def test_lloyd_prepared_takes_reference_operands():
     with both_tiers("high"):
         jops, jmeta = jc.lloyd_prepare(x, 29)
         want = jc.fused_lloyd_prepared(jops, y, **jmeta)
-        ops = interop.from_numpy(tuple(np.asarray(o) for o in jops))
+        ops = interop.from_numpy(tuple(np.asarray(o) for o in jops),
+                                 device="cpu")
         got = tc.fused_lloyd_prepared(ops, t(y), m=jmeta["m"])
         _check_lloyd(got, want, x, y, "high")
         tops, tmeta = tc.lloyd_prepare(t(x), 29)

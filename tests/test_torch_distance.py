@@ -1,6 +1,8 @@
 """The port's pairwise_distance and fused_l2_nn_argmin
-(raft_tpu_torch/distance/pairwise.py) against the reference package's,
-for the five expanded metrics the slice ports.
+(raft_tpu_torch/distance/pairwise.py) against the reference package's:
+the five expanded metrics at two tiers, and the metrics the first slice
+left raising (all metrics are held to the reference in
+tests/test_torch_unexpanded.py too).
 
 Tolerance: at 'high' and 'highest' both packages form the same products
 and differ only in f32 accumulation order, so distances agree to 1e-5
@@ -80,9 +82,18 @@ def test_l2_expanded_sqrt_flag():
                                   "JaccardExpanded", "KLDivergence",
                                   "Haversine", "BrayCurtis"])
 def test_unported_metrics_raise(name):
+    """These ten raised NotImplementedError until the unexpanded tile and
+    the plain-torch metrics were ported; now none raises, and each
+    matches the reference on the same small inputs (4 x 3, k = 2; |x| for
+    KL). Tolerance: f32 sums of two terms in another order, 1e-5 of the
+    value, plus 1e-6."""
     x, y = _data(3, m=4, nn=3, k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_pd(None, t(x), t(y), metric=TDT[name])
+    if name == "KLDivergence":
+        x, y = np.abs(x) + 0.1, np.abs(y) + 0.1
+    want = np.asarray(j_pd(None, x, y, metric=JDT[name], p=3.0))
+    got = n(t_pd(None, t(x), t(y), metric=TDT[name], p=3.0))
+    assert got.shape == want.shape == (4, 3)
+    np.testing.assert_allclose(got, want, rtol=REL, atol=1e-6)
 
 
 def test_guard_modes_other_than_off_raise():

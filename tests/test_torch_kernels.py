@@ -12,9 +12,14 @@ two runs of a kernel are bitwise equal. The selection kernels (top-k
 insertion, radix threshold and emission) are exact: their output equals
 the plain version's, bit for bit. The CSR kernels (SpMV, SpMM) agree
 with their plain versions to 2e-5 of (|A|·|B|)_row + 2e-5 in f32, and
-1e-12 of it + 1e-12 in f64 (sums in another order), with NaN in the same places, empty rows exactly 0 and
-two runs bitwise equal. chip_smoke.py runs the same checks with ties,
-NaN rows and padded rows, and at full size.
+1e-12 of it + 1e-12 in f64 (sums in another order), with NaN in the
+same places, empty rows exactly 0 and two runs bitwise equal. The
+unexpanded tile sums each output depth by depth in order, as its plain
+version does, so the two are bitwise equal but for lp's pow (1e-5 * sqrt(k)
+of the value). The MST E-stage is a min under a strict order: exact. The
+1-NN probe forms the fused kernels' products: exact on integer data,
+indices equal but at near-ties otherwise. chip_smoke.py runs the same
+checks with ties, NaN rows and padded rows, and at full size.
 """
 
 import pytest
@@ -272,3 +277,105 @@ def test_duplicate_sums_on_card_match_the_cpu(card):
         assert torch.equal(got.rows.cpu(), want.rows)
         assert torch.equal(got.cols.cpu(), want.cols)
         assert torch.equal(got.data.cpu(), want.data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("metric", ["l1", "linf", "canberra", "lp",
+                                    "hamming", "l2un"])
+def test_unexpanded_tile_matches_plain_on_card(card, metric, dtype):
+    g = torch.Generator(device=card).manual_seed(18)
+    for m, n, k in ((70, 129, 300), (1, 5, 1), (130, 1, 33)):
+        x = torch.randn(m, k, generator=g, device=card, dtype=dtype)
+        y = torch.randn(n, k, generator=g, device=card, dtype=dtype)
+        y[: n // 2, : k // 2] = x[0, : k // 2]    # exact matches, 0/0
+        x[-1, 0] = float("nan")
+        got = _counted("unexpanded_tile", lambda: tc._unexpanded_tile(
+            metric, 3.0, x, y))
+        again = tc._unexpanded_tile(metric, 3.0, x, y)
+        want = tc.unexpanded_ref(x, y, metric, 3.0)
+        assert got.dtype == dtype and torch.equal(
+            got.view(torch.uint8), again.view(torch.uint8))
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        if metric == "lp":
+            fin = torch.isfinite(want)
+            assert bool(((got - want).abs()[fin]
+                         <= 1e-5 * k ** 0.5 * want.abs()[fin]).all())
+        else:
+            assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mst_min_edge_matches_plain_on_card(card, dtype):
+    """A hub row, empty rows, NaN pads past indptr[-1] (never read), all-
+    equal weights and several colorings: exactly the plain version."""
+    from raft_tpu_torch.sparse.solver import mst_grid as tmg
+
+    indptr, indices, data, g = _card_csr(card, dtype, n_rows=3000,
+                                         n_cols=3000)
+    for weights in (data, torch.where(torch.isnan(data), data, 1.0)):
+        plan = tmg.MSTPlan(indptr=indptr, indices=indices, data=weights,
+                           n=3000, n_cols=3000, n_edges=int(indptr[-1]))
+        for colors in (torch.arange(3000, device=card),
+                       torch.randint(0, 40, (3000,), generator=g,
+                                     device=card),
+                       torch.zeros(3000, device=card)):
+            colors = colors.to(torch.int32)
+            got = _counted("mst_min_edge",
+                           lambda: tmg._min_edge(plan, colors))
+            want = tmg._min_edge_plain(indptr, indices, weights, colors,
+                                       3000, 3000)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mst_on_card_equals_mst_on_the_cpu(card):
+    import numpy as np
+    import scipy.sparse as sp
+
+    from raft_tpu_torch.core.sparse_types import CSRMatrix
+    from raft_tpu_torch.sparse.solver import mst
+
+    rng = np.random.default_rng(19)
+    d = np.round(rng.random((400, 400)), 1).astype(np.float32)
+    d[rng.random((400, 400)) > 0.02] = 0
+    a = sp.csr_matrix(np.maximum(d, d.T))
+    for pad in (True, False):
+        on_card = CSRMatrix.from_scipy(a, pad=pad).to_device()
+        cpu = on_card.to_host()
+        c1 = np.arange(400, dtype=np.int32)
+        c2 = c1.copy()
+        f1 = mst(None, on_card, color=c1)
+        f2 = mst(None, cpu, color=c2)
+        assert np.array_equal(c1, c2)
+        for field in ("src", "dst", "weights"):
+            assert torch.equal(getattr(f1, field).cpu(), getattr(f2, field))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", TIERS)
+def test_minonly_matches_plain_on_card(card, tier):
+    m, n, kd = 300, 5000, 37                       # ragged, several splits
+    g = torch.Generator(device=card).manual_seed(20)
+    for integer in (True, False):
+        x = torch.randn(m, kd, generator=g, device=card)
+        y = torch.randn(n, kd, generator=g, device=card)
+        if integer:
+            x, y = torch.round(2 * x), torch.round(2 * y)
+        y[4000] = y[3]                             # tie: column 3 first
+        x[1] = y[3]
+        xs, ys = tc._side(x, tier), tc._side(y, tier)
+        got = _counted("minonly", lambda: tft._minonly(tier, xs, ys, m, n,
+                                                       kd))
+        want = tft._minonly_plain(tier, xs, ys, m, n, kd)
+        assert int(got[1][1]) == 3
+        if integer:                                # every sum exact
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                 want[1])
+            continue
+        scale = float(((x * x).sum(1).max() + (y * y).sum(1).max()))
+        same = got[1] == want[1]
+        assert float(same.float().mean()) >= 0.99
+        assert float((got[0] - want[0]).abs().max()) <= 1e-5 * scale

@@ -170,9 +170,48 @@ def test_knn_plan_matches_reference(metric, tile):
 
 def test_knn_rejects_what_is_not_ported():
     queries, db = _data(4, q=3, nn=40, d=4)
-    with pytest.raises(NotImplementedError, match="queue B item 4"):
-        t_knn(None, t(db), t(queries), 3, metric="l1")
     with pytest.raises(ValueError):
         t_knn(None, t(db), t(queries), 41)
     with pytest.raises(ValueError):
         t_knn(None, t(db), t(queries), 3, metric="mahalanobis")
+
+
+@pytest.mark.parametrize("metric", ["l1", "linf", "canberra"])
+def test_knn_unexpanded_small_matches_reference(metric):
+    """The l1 call that raised until the unexpanded tile was ported, and
+    its siblings: indices equal to the reference's (no near-ties in this
+    normal data at these sizes), distances within 1e-5 * sqrt(d)."""
+    queries, db = _data(4, q=3, nn=40, d=4)
+    jv, ji = jbf.knn(None, db, queries, 3, metric=metric)
+    tv, ti = t_knn(_cpu(), t(db), t(queries), 3, metric=metric)
+    np.testing.assert_array_equal(n(ti), np.asarray(ji))
+    np.testing.assert_allclose(n(tv), np.asarray(jv), rtol=2e-5)
+
+
+@pytest.mark.parametrize("tier", ["default", "high", "highest"])
+def test_minonly_probe_matches_reference(tier):
+    """The tune-only 1-NN floor probe (finite inputs). At 'high' and
+    'highest' both packages form the same products, so indices are equal
+    (ties go to the smaller column) and values agree to 1e-5 of
+    |q|² + |x|². At 'default' the port makes one bf16 pass, as on the TPU,
+    while the reference on the CPU computes f32: the port's indices equal
+    the exact argmin of a numpy emulation of that pass, and its values
+    agree with the reference's to 1e-2 of the scale."""
+    rng = np.random.default_rng(14)
+    q = rng.normal(size=(21, 10)).astype(np.float32)
+    db = rng.normal(size=(900, 10)).astype(np.float32)
+    db[700] = db[3]                               # tie: column 3 first
+    q[0] = db[3] + 1e-3
+    with both_tiers(tier):
+        jv, ji = jft._minonly_probe(jnp.asarray(q), jnp.asarray(db),
+                                    tm=128, tn=256)
+        tv, ti = tft._minonly_probe(t(q), t(db), tm=128, tn=256)
+    scale = _scale("l2", q, db)
+    assert int(n(ti)[0]) == 3
+    if tier == "default":
+        d = _exact("l2", q, db, one_pass_cross(q, db))
+        np.testing.assert_array_equal(n(ti), np.argmin(d, axis=1))
+        assert (np.abs(n(tv) - np.asarray(jv)) <= 1e-2 * scale).all()
+        return
+    np.testing.assert_array_equal(n(ti), np.asarray(ji))
+    assert (np.abs(n(tv) - np.asarray(jv)) <= REL * scale).all()

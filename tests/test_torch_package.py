@@ -33,6 +33,10 @@ def test_import_leaves_jax_and_reference_out():
             "raft_tpu_torch.distance, raft_tpu_torch.interop, "
             "raft_tpu_torch.matrix, raft_tpu_torch.neighbors, "
             "raft_tpu_torch.sparse, raft_tpu_torch.sparse.solver, "
+            "raft_tpu_torch.sparse.solver.mst, "
+            "raft_tpu_torch.sparse.solver.mst_grid, "
+            "raft_tpu_torch.neighbors.fused_topk, "
+            "raft_tpu_torch.linalg.contractions, "
             "raft_tpu_torch.spectral, raft_tpu_torch.random; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'raft_tpu.')) or m == 'raft_tpu'))")
@@ -149,7 +153,8 @@ def test_device_resources_refuses_cpu_fallback():
                                    "insert_select", "knn_fused",
                                    "insert_drain_ref", "spmv", "spmm",
                                    "csr_from_scipy", "csr_from_numpy",
-                                   "eigsh", "partition"])
+                                   "from_numpy", "eigsh", "partition",
+                                   "mst"])
 def test_array_inputs_go_to_the_handle_device(entry):
     """An array with no handle goes to cuda:0: without CUDA that raises
     instead of running on the host; a CPU handle runs it here. The entry
@@ -170,7 +175,7 @@ def test_array_inputs_go_to_the_handle_device(entry):
     from raft_tpu_torch import interop
     from raft_tpu_torch.core.sparse_types import CSRMatrix
     from raft_tpu_torch.sparse import linalg
-    from raft_tpu_torch.sparse.solver import eigsh
+    from raft_tpu_torch.sparse.solver import eigsh, mst
     from raft_tpu_torch.spectral import partition
 
     a = np.arange(24, dtype=np.float32).reshape(6, 4)
@@ -200,8 +205,10 @@ def test_array_inputs_go_to_the_handle_device(entry):
                                                              res=r).data,
             "csr_from_numpy": lambda r: interop.csr_from_numpy(
                 ring.indptr, ring.indices, ring.data, ring.shape, res=r).data,
+            "from_numpy": lambda r: interop.from_numpy(a, res=r),
             "eigsh": lambda r: eigsh(ring.toarray(), k=2, res=r),
-            "partition": lambda r: partition(r, ring, 2)}[entry]
+            "partition": lambda r: partition(r, ring, 2),
+            "mst": lambda r: mst(r, ring).weights}[entry]
     if torch.cuda.is_available():
         out = call(None)
         first = out[0] if isinstance(out, tuple) else out
@@ -212,6 +219,25 @@ def test_array_inputs_go_to_the_handle_device(entry):
     out = call(rt.device_resources("cpu"))
     first = out[0] if isinstance(out, tuple) else out
     assert first.device.type == "cpu"
+
+
+def test_from_numpy_keeps_bf16_bits_and_an_explicit_device():
+    """An explicit device wins over the handle's; bf16 arrays arrive bit
+    for bit, tuples stay tuples."""
+    import numpy as np
+
+    from raft_tpu_torch import interop
+
+    import ml_dtypes
+
+    bits = np.array([0x3F80, 0x7FC1, 0x0001, 0xFF80], np.uint16).view(
+        np.int16)
+    src = bits.view(ml_dtypes.bfloat16)
+    got = interop.from_numpy(src, device="cpu")
+    assert got.dtype == torch.bfloat16 and got.device.type == "cpu"
+    assert torch.equal(got.view(torch.int16), torch.from_numpy(bits))
+    pair = interop.from_numpy((np.ones(3, np.float32), src), device="cpu")
+    assert isinstance(pair, tuple) and pair[0].dtype == torch.float32
 
 
 def test_malformed_precision_knob_fails_loudly():
