@@ -42,7 +42,11 @@ row of 100,000 entries, empty rows, an empty matrix, a stored zero
 against inf, a padded CSR, a non-square matrix, f64 and k = 1 to 64.
 It then holds every kernel against its plain version at the shapes
 those paths give it (the kNN radix route's 4096 x 32,768 chunk of
-distances and config 4's graph included) and times it there. Each
+distances and config 4's graph included) and times it there, with
+``pairwise_tile``'s tile at each tier (wgmma at 'default' and 'high',
+the FMA tile at 'highest'), the count of HGMMA instructions in its built
+library (where the toolkit has ``cuobjdump``) and ``csr_spmm`` on config
+4 with and without its longest row (the hub row's share). Each
 phase prints one JSON line; the line before the last is the card's name
 and power limit from ``nvidia-smi``, the last is the result. Longer
 output (compiler logs, all numbers) goes to
@@ -939,6 +943,7 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, launches, parity_errs):
         knn_chunk = {
             "pairwise_tile": dict(
                 shape=[nq, cw, d], tier="high",
+                tile=tc.PAIRWISE_ROUTE["high"],
                 launches=launches["pairwise_tile"], max_abs_err=cerr,
                 ms=cuda_ms(lambda: tc._pairwise_tile("high", "l2", xs, cys,
                                                      nq, cw, d), 5),
@@ -1118,6 +1123,9 @@ def kernel_numbers(x, c, ops, parity_errs, launches):
                         None if agree is None else bad.numel()),
                     sums_err_over_mass=sums_rel)
                 torch.cuda.empty_cache()
+            if name == "pairwise_tile":
+                for tier, row in by_tier.items():
+                    row["tile"] = tc.PAIRWISE_ROUTE[tier]
             high = by_tier["high"]
             spec = kernels.REGISTRY[name]
             table.append({
@@ -1133,6 +1141,8 @@ def kernel_numbers(x, c, ops, parity_errs, launches):
                 "differing_labels": high["differing_labels"],
                 "sums_err_over_mass": high["sums_err_over_mass"],
                 "shape": [m, n, k], "tier": "high",
+                **({"tile": by_tier["high"]["tile"]}
+                   if name == "pairwise_tile" else {}),
                 "other_tiers": {t: by_tier[t] for t in ("default",
                                                         "highest")}})
 
@@ -1447,7 +1457,12 @@ def config4_phase(res, dev):
     spmv_ms = cuda_ms(lambda: linalg.spmv(g, x), 20)
     spmm_ms = cuda_ms(lambda: linalg.spmm(g, b16), 10)
     lengths = g.indptr[1:] - g.indptr[:-1]
-    tail = {}
+    # the hub row's share of csr_spmm: config 4 without its longest row
+    no_hub = rows_subset(g, lengths < lengths.max())
+    no_hub_ms = cuda_ms(lambda: linalg.spmm(no_hub, b16), 10)
+    del no_hub
+    tail = {"without_longest_row_spmm_k16_ms": no_hub_ms,
+            "longest_row_share_of_spmm": 1.0 - no_hub_ms / spmm_ms}
     for part, rows in (("short_rows", lengths <= 1024),
                        ("long_rows", lengths > 1024)):
         sub = rows_subset(g, rows)
@@ -2276,6 +2291,22 @@ def probe_phase(res, dev, db, q, parity_err):
             "selection_share_of_fused_topk": share}
 
 
+def hgmma_count(build, kernels):
+    """HGMMA (wgmma) instructions in the built pairwise_tile library, by
+    the toolkit's cuobjdump; None where the toolkit has none."""
+    from pathlib import Path
+
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    if not cuobjdump.is_file():
+        return None
+    lib = build.library_path(kernels.REGISTRY["pairwise_tile"])
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    count = sass.count("HGMMA")
+    check(count > 0, "pairwise_tile built without wgmma instructions")
+    return count
+
+
 def main():
     import torch
 
@@ -2308,7 +2339,8 @@ def main():
          kernels={n: round(b["seconds"], 2) for n, b in built.items()},
          max_registers=max(map(int, re.findall(r"Used (\d+) registers",
                                                ptxas)), default=None),
-         spill_bytes=sum(map(int, re.findall(r"(\d+) bytes spill", ptxas))))
+         spill_bytes=sum(map(int, re.findall(r"(\d+) bytes spill", ptxas))),
+         pairwise_tile_hgmma=hgmma_count(build, kernels))
 
     parity_errs = parity(dev)
     parity_errs.update(topk_parity(dev))

@@ -149,8 +149,9 @@ REGISTRY: Dict[str, KernelSpec] = {
             source="csrc/csr_spmm.cu",
             symbol="raft_csr_spmm",
             # dtype, idx64, indptr, indices, data, b, ldb, c, ldc, n_rows,
-            # k, stream
-            argtypes=(_I, _I, _P, _P, _P, _P, _L, _P, _L, _I, _I, _P),
+            # k, n_chunks, seg_len, part, stream
+            argtypes=(_I, _I, _P, _P, _P, _P, _L, _P, _L, _I, _I, _L, _I,
+                      _P, _P),
             plain="raft_tpu_torch.sparse.grid_spmv._spmm_plain",
             ports="raft_tpu/sparse/grid_spmv.py:_gather_kt_kernel, "
                   "_segsum_kt_kernel, _reduce_kt_kernel",

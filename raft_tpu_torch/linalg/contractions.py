@@ -32,11 +32,13 @@ family (:func:`pairwise_unexpanded_pallas`), which keeps f64 as f64.
 
 The TPU tile knobs of the reference functions (``tm``, ``tn``,
 ``packed``, ``counts_mxu``) have no counterpart: the CUDA kernels use
-fixed 128 x 128 tiles whose shared memory (34 KB at ``'high'``) is far
-inside Hopper's 227 KB a block, and need no padding (they mask ragged
-edges), so the reference's VMEM planner and its fallback path are gone.
-What is left to plan is the persistent grid of the Lloyd pass
-(:func:`_lloyd_blocks`).
+fixed 128 x 128 tiles that fit Hopper's 227 KB of shared memory a block
+and mask ragged edges, so the reference's VMEM planner and its fallback
+path are gone. What is left to plan is the persistent grid of the Lloyd
+pass (:func:`_lloyd_blocks`) and, for the distance tile's tensor-core
+route at ``'default'`` and ``'high'`` (:data:`PAIRWISE_ROUTE`), the bf16
+operand rows with their depth padded by zero columns to a multiple of 8
+(:func:`_wgmma_operands`).
 """
 
 from __future__ import annotations
@@ -60,6 +62,14 @@ _COSINE_EPS = 1e-30
 # Row and column tiles of the kernels (csrc/common.cuh BM, BN).
 TILE_M = 128
 TILE_N = 128
+
+# Tile of csrc/pairwise_tile.cu at each tier: the tensor-core tile of
+# csrc/wgmma_tile.cuh, or csrc/common.cuh's CUDA-core FMA tile (no exact
+# f32 tensor-core product exists for 'highest').
+PAIRWISE_ROUTE = {"default": "wgmma", "high": "wgmma", "highest": "fma"}
+# The wgmma route's operand rows: depth and row stride a multiple of 8
+# bf16 (16 bytes), so every 16-byte copy of a row is whole.
+WGMMA_DEPTH = 8
 
 # Persistent grid of the Lloyd pass: two blocks per SM of a 132-SM H100,
 # fixed by the shapes and never by the card, so the order of the sums (and
@@ -232,15 +242,46 @@ def _operand_args(xs: Side, ys: Side):
             _ptr(ys.v0), _ptr(ys.v1), _ptr(ys.norms), ys.v0.stride(0))
 
 
+def _wgmma_side(side: Side, tier: str, rows: int, k: int, kp: int) -> Side:
+    """Rows ``[:rows, :k]`` of one side in the wgmma route's format: bf16
+    (the f32 rows of 'default' rounded half to even; the halves of 'high'
+    as they are), copied with zero columns up to depth ``kp`` where the
+    depth, a row stride or a base is not 16-byte aligned, else the same
+    memory."""
+    parts = [side.v0] if tier == "default" else [side.v0, side.v1]
+    parts = [p[:rows, :k].to(torch.bfloat16) for p in parts]
+    if kp != k or any(p.stride(0) % WGMMA_DEPTH or p.data_ptr() % 16
+                      for p in parts):
+        padded = []
+        for p in parts:
+            q = p.new_zeros((rows, kp))
+            q[:, :k] = p
+            padded.append(q)
+        parts = padded
+    return Side(parts[0], parts[1] if len(parts) == 2 else None, side.norms)
+
+
+def _wgmma_operands(tier: str, xs: Side, ys: Side, m: int, n: int, k: int):
+    """``(xs, ys, kp)``: both sides in the wgmma route's format and the
+    padded depth. The zero columns add exact zeros, so the plain version
+    gives the same result on these operands at depth kp."""
+    kp = cdiv(k, WGMMA_DEPTH) * WGMMA_DEPTH
+    return (_wgmma_side(xs, tier, m, k, kp), _wgmma_side(ys, tier, n, k, kp),
+            kp)
+
+
 def _pairwise_tile(tier: str, metric: str, xs: Side, ys: Side,
                    m: int, n: int, k: int) -> torch.Tensor:
-    """Distance matrix [m, n]: csrc/pairwise_tile.cu on CUDA."""
+    """Distance matrix [m, n]: csrc/pairwise_tile.cu on CUDA, on the tile
+    :data:`PAIRWISE_ROUTE` names for the tier."""
     if _on_cpu(xs, ys):
         return _pairwise_plain(tier, metric, xs, ys, m, n, k)
     _check_side(xs, tier, m, k, "x")
     _check_side(ys, tier, n, k, "y")
     dev = xs.v0.device
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if PAIRWISE_ROUTE[tier] == "wgmma":
+        xs, ys, k = _wgmma_operands(tier, xs, ys, m, n, k)
     kernels.launch("pairwise_tile", dev, _TIER_CODE[tier],
                    _METRIC_CODE[metric], *_operand_args(xs, ys),
                    out.data_ptr(), m, n, k)

@@ -17,7 +17,10 @@ because Mosaic's gather is lane-local and cannot read x at a column index
 directly; its three kernels gather through a select tree, sum each row
 with a segmented scan and accumulate row-window planes. A CUDA thread
 reads x at any column, so each kernel here computes what three compute
-together, straight from the CSR arrays, one warp a row. The plan
+together, straight from the CSR arrays: SpMV one warp a row; SpMM gives
+no warp more than :data:`SPMM_SEG` entries (a warp a row for its first
+ones, a warp per chunk of the entries for the rest of long rows), so
+that a hub row spreads over many warps. The plan
 (:class:`GridSpMV`) keeps the reference's role, "prepare once per
 pattern, apply many times", and holds the CSR pattern on the device: no
 slot grid, no host pack, no shard width.
@@ -48,6 +51,9 @@ __all__ = ["GridSpMV", "prepare", "spmv", "spmm", "SPAN_WINDOWS"]
 # windows); kept only to validate prepare()'s argument.
 SPAN_WINDOWS = 8
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+# Entries a warp of csrc/csr_spmm.cu takes at most: a row's first ones,
+# or a chunk of the entry array.
+SPMM_SEG = 256
 
 
 class GridSpMV:
@@ -170,10 +176,15 @@ def _spmm(indptr, indices, data, b, n_rows: int) -> torch.Tensor:
         return _spmm_plain(indptr, indices, data, b, n_rows)
     c = torch.empty((n_rows, k), dtype=b.dtype, device=dev)
     if n_rows and k:
+        # one chunk warp (and partial) per SPMM_SEG physical entries: a
+        # host-known bound on the logical entries' chunks, so no sync
+        n_chunks = indices.numel() // SPMM_SEG + 1
+        part = torch.empty((n_chunks, k), dtype=b.dtype, device=dev)
         kernels.launch("csr_spmm", dev, _DTYPE_CODE[b.dtype],
                        int(indptr.dtype == torch.int64), indptr.data_ptr(),
                        indices.data_ptr(), data.data_ptr(), b.data_ptr(),
-                       b.stride(0), c.data_ptr(), c.stride(0), n_rows, k)
+                       b.stride(0), c.data_ptr(), c.stride(0), n_rows, k,
+                       n_chunks, SPMM_SEG, part.data_ptr())
     return c
 
 

@@ -120,6 +120,41 @@ def test_pairwise_matches_reference(tier, metric):
         np.testing.assert_array_less(np.abs(got - want), REL * scale + 1e-6)
 
 
+@pytest.mark.parametrize("tier", ["default", "high"])
+@pytest.mark.parametrize("shape", [(63, 65, 50), (1, 333, 19),
+                                   (64, 1, 128), (65, 64, 200)])
+def test_wgmma_operands_give_the_plain_result(tier, shape):
+    """The wgmma route's operands (csrc/pairwise_tile.cu at 'default' and
+    'high'): bf16 rows, rounded half to even as the reference rounds,
+    zero columns up to a depth of a multiple of 8, 16-byte aligned rows;
+    the plain version gives bit for bit the same distances on them as on
+    the unpadded operands. x is a strided view (ldx > k)."""
+    m, nn, k = shape
+    x, y = _data(31, m=m, nn=nn, k=k + 5)
+    xt, yt = t(x)[:, :k], t(y)[:, :k].contiguous()
+    xs = tc._side(xt if tier == "default" else xt.contiguous(), tier)
+    ys = tc._side(yt, tier)
+    ws, vs, kp = tc._wgmma_operands(tier, xs, ys, m, nn, k)
+    assert kp % tc.WGMMA_DEPTH == 0 and 0 <= kp - k < tc.WGMMA_DEPTH
+    for side, w, rows, raw in ((xs, ws, m, xt), (ys, vs, nn, yt)):
+        halves = [(w.v0, side.v0)] if tier == "default" else \
+            [(w.v0, side.v0), (w.v1, side.v1)]
+        for got, src in halves:
+            assert got.dtype == torch.bfloat16 and got.shape[1] >= kp
+            assert got.stride(0) % 8 == 0 and got.data_ptr() % 16 == 0
+            want = (tc._round_to_bf16_f32(raw) if tier == "default"
+                    else src[:rows, :k].float())
+            assert torch.equal(got[:rows, :k].float(), want)
+            assert not bool(got[:rows, k:kp].any())
+        assert w.norms is side.norms
+    for metric in METRICS:
+        assert torch.equal(
+            tc._pairwise_plain(tier, metric, ws, vs, m, nn, kp),
+            tc._pairwise_plain(tier, metric, xs, ys, m, nn, k))
+    if tier == "high" and k % 8 == 0:       # aligned halves: no copy
+        assert ws.v0.data_ptr() == xs.v0.data_ptr()
+
+
 @pytest.mark.parametrize("sqrt", [False, True])
 def test_pairwise_l2_clamps_and_roots(sqrt):
     x, y = _data(3, m=60, nn=20, k=9)

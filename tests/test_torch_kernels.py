@@ -13,7 +13,8 @@ insertion, radix threshold and emission) are exact: their output equals
 the plain version's, bit for bit. The CSR kernels (SpMV, SpMM) agree
 with their plain versions to 2e-5 of (|A|·|B|)_row + 2e-5 in f32, and
 1e-12 of it + 1e-12 in f64 (sums in another order), with NaN in the
-same places, empty rows exactly 0 and two runs bitwise equal. The
+same places, empty rows exactly 0 and two runs bitwise equal (int32 or
+int64 indptr alike). The
 unexpanded tile sums each output depth by depth in order, as its plain
 version does, so the two are bitwise equal but for lp's pow (1e-5 * sqrt(k)
 of the value). The MST E-stage is a min under a strict order: exact. The
@@ -30,6 +31,7 @@ from raft_tpu_torch.linalg import contractions as tc
 from raft_tpu_torch.matrix import radix_select as trs
 from raft_tpu_torch.matrix import topk_insert as tti
 from raft_tpu_torch.neighbors import fused_topk as tft
+from raft_tpu_torch.sparse.grid_spmv import SPMM_SEG
 
 TIERS = ("default", "high", "highest")
 
@@ -85,6 +87,63 @@ def test_kernel_matches_plain_on_card(card, name, tier):
             mag = torch.zeros(n, k, device=card).index_add_(0, idx.long(),
                                                             x.abs())
             assert bool(((sums - want[0]).abs() <= 1e-5 * mag + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "cosine", "inner"])
+@pytest.mark.parametrize("tier", TIERS)
+def test_pairwise_tile_shapes_on_card(card, tier, metric):
+    """The distance tile at ragged shapes around its 64-row warpgroup and
+    128 x 128 tile (the wgmma fragment's row and column map shows only
+    there), depths that need zero columns on the wgmma route (50) and
+    more than one 64-deep stage (128, 200), and x as a strided view
+    (ldx > k): each case twice, bitwise equal, and within 1e-5 of
+    (|x|² + |y|²) of the plain version."""
+    g = torch.Generator(device=card).manual_seed(21)
+    sizes = (1, 63, 64, 65, 333)
+    for k in (8, 16, 50, 128, 200):
+        for m in sizes:
+            for n in sizes:
+                wide = torch.randn(m, k + 8, generator=g, device=card)
+                x = wide[:, :k] if (m + n) % 2 else wide[:, :k].contiguous()
+                y = torch.randn(n, k, generator=g, device=card)
+                if tier != "high":
+                    xs = tc.Side(x, None, tc._sq_norms(x))
+                else:
+                    xs = tc._side(x.contiguous(), tier)
+                ys = tc._side(y, tier)
+                got = _counted("pairwise_tile", lambda: tc._pairwise_tile(
+                    tier, metric, xs, ys, m, n, k))
+                again = tc._pairwise_tile(tier, metric, xs, ys, m, n, k)
+                want = tc._pairwise_plain(tier, metric, xs, ys, m, n, k)
+                assert torch.equal(got, again), (m, n, k)
+                scale = float(((x * x).sum(1)[:, None]
+                               + (y * y).sum(1)[None, :]).max())
+                if metric == "cosine":
+                    scale = 1.0
+                err = float((got - want).abs().max())
+                assert err <= 1e-5 * scale, (m, n, k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", TIERS)
+def test_pairwise_tile_many_tiles_a_block_on_card(card, tier):
+    """More output tiles than multiprocessors, so that each persistent
+    block of the wgmma route walks several tiles, with one 64-deep stage
+    a tile (k = 24) and with four (k = 200, more stages than the ring
+    holds): as the sweep above, bitwise repeatable and within 1e-5."""
+    g = torch.Generator(device=card).manual_seed(22)
+    for m, n, k in ((3000, 2000, 24), (4000, 1100, 200)):
+        x = torch.randn(m, k, generator=g, device=card)
+        y = torch.randn(n, k, generator=g, device=card)
+        xs, ys = tc._side(x, tier), tc._side(y, tier)
+        got = _counted("pairwise_tile", lambda: tc._pairwise_tile(
+            tier, "l2", xs, ys, m, n, k))
+        assert torch.equal(got, tc._pairwise_tile(tier, "l2", xs, ys, m, n,
+                                                   k))
+        want = tc._pairwise_plain(tier, "l2", xs, ys, m, n, k)
+        scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+        assert bool(((got - want).abs() <= 1e-5 * scale).all()), (m, n, k)
 
 
 @pytest.mark.cuda
@@ -198,6 +257,8 @@ def _card_csr(card, dtype, n_rows=3000, n_cols=2500, hub=20000, pad=100):
     lengths = torch.randint(0, 21, (n_rows,), generator=g, device=card)
     lengths[torch.rand(n_rows, generator=g, device=card) < 0.33] = 0
     lengths[7] = hub
+    lengths[9] = 2 * SPMM_SEG          # exactly two warps' shares
+    lengths[10] = SPMM_SEG             # exactly one row warp's share
     indptr = torch.zeros(n_rows + 1, dtype=torch.int32, device=card)
     indptr[1:] = torch.cumsum(lengths, 0)
     nnz = int(indptr[-1])
@@ -224,8 +285,11 @@ def _assert_csr_close(got, want, indptr, indices, data, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("k", [1, 2, 31, 32, 33, 64])
+@pytest.mark.parametrize("k", [1, 2, 4, 16, 31, 32, 33, 64, 200])
 def test_csr_kernels_match_plain_on_card(card, dtype, k):
+    """A hub row over many SpMM segments, rows ending exactly on a segment
+    boundary, a third of the rows empty, NaN pads: within the band of the
+    plain version, bitwise equal run to run and with int64 indptr."""
     from raft_tpu_torch.sparse import grid_spmv as tg
 
     indptr, indices, data, g = _card_csr(card, dtype)
@@ -235,12 +299,30 @@ def test_csr_kernels_match_plain_on_card(card, dtype, k):
     name = "csr_spmv" if k == 1 else "csr_spmm"
     got = _counted(name, lambda: tg._spmm(indptr, indices, data, b, n_rows))
     again = tg._spmm(indptr, indices, data, b, n_rows)
+    wide = tg._spmm(indptr.long(), indices, data, b, n_rows)
     assert got.dtype == dtype and got.shape == (n_rows, k)
     assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    assert torch.equal(got.view(torch.uint8), wide.view(torch.uint8))
     want = tg._spmm_plain(indptr, indices, data, b, n_rows)
     _assert_csr_close(got, want, indptr, indices, data, b)
     empty = (indptr[1:] == indptr[:-1])
     assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_csr_spmm_all_rows_empty_on_card(card, dtype):
+    from raft_tpu_torch.sparse import grid_spmv as tg
+
+    for idx in (torch.int32, torch.int64):
+        indptr = torch.zeros(3001, dtype=idx, device=card)
+        none = torch.zeros(0, dtype=torch.int32, device=card)
+        b = torch.randn(50, 16, device=card, dtype=dtype)
+        got = _counted("csr_spmm", lambda: tg._spmm(
+            indptr, none, torch.zeros(0, device=card, dtype=dtype), b,
+            3000))
+        assert torch.equal(got, torch.zeros(3000, 16, device=card,
+                                             dtype=dtype))
 
 
 @pytest.mark.cuda

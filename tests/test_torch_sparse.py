@@ -458,6 +458,109 @@ def test_spmm_matches_reference(name, k):
                          a, b)
 
 
+def _spmm_split(indptr, n_entries, seg_len):
+    """csrc/csr_spmm.cu's split of the work, warp by warp: row warps take
+    a row's first ``seg_len`` entries into C[row] (slot -1); chunk warp c
+    takes the entries of [c seg_len, (c + 1) seg_len) at offset >=
+    seg_len in the row holding entry c seg_len (found as the kernel's
+    binary search finds it) into partial slot c. Returns (row, start, end,
+    slot) of every warp that writes, and the kernel's chunk count."""
+    n_rows = indptr.numel() - 1
+    ip = indptr.long()
+    s, e = ip[:-1], ip[1:]
+    rows = torch.arange(n_rows)
+    out = [(rows, s, torch.minimum(e, s + seg_len),
+            torch.full((n_rows,), -1))]
+    n_chunks = n_entries // seg_len + 1
+    first = torch.arange(n_chunks) * seg_len
+    live = first < ip[-1]
+    first = first[live]
+    r = torch.searchsorted(ip[:n_rows], first, right=True) - 1
+    a = torch.maximum(first, s[r] + seg_len)
+    z = torch.minimum(first + seg_len, e[r])
+    w = a < z
+    out.append((r[w], a[w], z[w], torch.arange(n_chunks)[live][w]))
+    return [torch.cat(t) for t in zip(*out)], n_chunks
+
+
+def _split_lengths(name, seg_len):
+    rng = np.random.default_rng(23)
+    if name == "all_empty":
+        return np.zeros(40, np.int64)
+    if name == "one_long_row":
+        return np.array([7 * seg_len + 3])
+    lengths = rng.integers(0, 30, 500)
+    lengths[rng.uniform(size=500) < 0.3] = 0
+    lengths[[3, 250]] = [20 * seg_len + 17, 3 * seg_len]   # hub, boundary
+    lengths[[4, 499]] = [seg_len + 1, 2 * seg_len]
+    return lengths
+
+
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+@pytest.mark.parametrize("name", ["hub_and_empty_rows", "all_empty",
+                                  "one_long_row"])
+def test_spmm_split_covers_each_entry_once(name, idx):
+    """The work split of csr_spmm.cu, on the wrapper's chunk count (from
+    the physical entry count, pads included): every row is written by
+    exactly one row warp; every entry below indptr[-1] falls in exactly one
+    warp's range, of its own row, and none past it (pad entries); no warp
+    takes more than SPMM_SEG entries; partial slots are distinct and
+    inside the buffer. Summing the ranges as the kernel does (C[row] from
+    the row warp, then the partials in chunk order) matches the
+    reference's SpMM."""
+    seg_len = tgrid.SPMM_SEG
+    lengths = _split_lengths(name, seg_len)
+    n_rows, nnz, pad = lengths.size, int(lengths.sum()), 9
+    indptr = torch.zeros(n_rows + 1, dtype=idx)
+    indptr[1:] = torch.cumsum(torch.as_tensor(lengths), 0)
+    (r, start, end, slot), n_chunks = _spmm_split(indptr, nnz + pad,
+                                                  seg_len)
+    assert torch.equal(torch.bincount(r[slot < 0], minlength=n_rows),
+                       torch.ones(n_rows, dtype=torch.int64))
+    assert bool(((end - start) <= seg_len).all())
+    cover = torch.zeros(nnz + pad, dtype=torch.int64)
+    owner = torch.full((nnz + pad,), -1, dtype=torch.int64)
+    for row, a, b in zip(r.tolist(), start.tolist(), end.tolist()):
+        cover[a:b] += 1
+        owner[a:b] = row
+    assert torch.equal(cover, torch.tensor([1] * nnz + [0] * pad))
+    assert torch.equal(owner[:nnz], torch.repeat_interleave(
+        torch.arange(n_rows), torch.as_tensor(lengths)))
+    parts = slot[slot >= 0]
+    assert parts.unique().numel() == parts.numel()
+    assert bool((parts < n_chunks).all())
+    # the fix-up's chunks of a long row [s, e): (s + seg_len) // seg_len
+    # to (e - 1) // seg_len, exactly those that wrote for it
+    ip = indptr.long()
+    for row in np.flatnonzero(lengths > seg_len):
+        s, e = int(ip[row]), int(ip[row + 1])
+        want = list(range((s + seg_len) // seg_len, (e - 1) // seg_len + 1))
+        assert sorted(slot[(r == int(row)) & (slot >= 0)].tolist()) == want
+
+    rng = np.random.default_rng(29)
+    cols = rng.integers(0, 50, nnz + pad).astype(np.int32)
+    vals = rng.normal(size=nnz + pad).astype(np.float32)
+    b = rng.normal(size=(50, 4)).astype(np.float32)
+    prods = t(vals)[:, None] * t(b)[torch.as_tensor(cols).long()]
+    got = torch.zeros(n_rows, 4)
+    part = torch.zeros(n_chunks, 4)
+    for row, a, e, sl in zip(r.tolist(), start.tolist(), end.tolist(),
+                             slot.tolist()):
+        if sl < 0:
+            got[row] = prods[a:e].sum(0)
+        else:
+            part[sl] = prods[a:e].sum(0)
+    order = torch.argsort(slot)
+    for row, sl in zip(r[order].tolist(), slot[order].tolist()):
+        if sl >= 0:
+            got[row] += part[sl]
+    a = sp.csr_matrix((vals[:nnz], cols[:nnz], indptr.numpy()),
+                      shape=(n_rows, 50))
+    want = np.asarray(jlin.spmm(jst.CSRMatrix.from_scipy(a),
+                                jnp.asarray(b)))
+    assert_product_close(n(got), want, a, b)
+
+
 def test_spmm_alpha_beta_and_plan_arguments():
     a, _, _ = _case("random")
     rng = np.random.default_rng(4)
