@@ -44,9 +44,14 @@ It then holds every kernel against its plain version at the shapes
 those paths give it (the kNN radix route's 4096 x 32,768 chunk of
 distances and config 4's graph included) and times it there, with
 ``pairwise_tile``'s tile at each tier (wgmma at 'default' and 'high',
-the FMA tile at 'highest'), the count of HGMMA instructions in its built
-library (where the toolkit has ``cuobjdump``) and ``csr_spmm`` on config
-4 with and without its longest row (the hub row's share). Each
+the FMA tile at 'highest'), the count of HGMMA instructions in the built
+libraries of ``pairwise_tile`` and ``fused_lloyd`` (where the toolkit
+has ``cuobjdump``), the Lloyd pass split into its argmin and its sums
+by kernel name from a ``torch.profiler`` trace (every output bitwise
+equal on two argmin grids), its plan at BASELINE config 5's shape (not
+run), a trace of k-means iterations (the card's busy time and idle
+share), and ``csr_spmv`` and ``csr_spmm`` on config 4 with and without
+its longest row (the hub row's share). Each
 phase prints one JSON line; the line before the last is the card's name
 and power limit from ``nvidia-smi``, the last is the result. Longer
 output (compiler logs, all numbers) goes to
@@ -234,7 +239,8 @@ def parity(dev):
     scale_l2 = (xn64[:, None] + yn64[None, :]).float()
     scales = {"l2": scale_l2, "cosine": torch.ones_like(scale_l2),
               "inner": (xn64[:, None] * yn64[None, :]).sqrt().float()}
-    mb = 2 * tc.LLOYD_BLOCKS * tc.TILE_M + 77   # Lloyd rows: ~2 tiles a block
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mb = 2 * sms * tc.TILE_M + 77               # Lloyd rows: ~2 tiles a block
     xb = torch.randn(mb, k, generator=gen, device=dev)
     scale_b = ((xb.double() ** 2).sum(1) + yn64.max()).float()
     errs = {"pairwise_tile": 0.0, "fused_argmin": 0.0, "fused_lloyd": 0.0}
@@ -285,7 +291,8 @@ def parity(dev):
 
         # Lloyd: operands with 23 junk rows past m, which must never count;
         # on the default grid (one row tile a block) and on two blocks
-        # (three and two row tiles a block), which must give the same labels
+        # (three and two row tiles a block), which must give the same
+        # labels, distances, counts and sums, bit for bit
         junk = 23
         xp = torch.cat([x, torch.full((junk, k), 7e3, device=dev)])
         xps = tc._side(xp, tier)
@@ -300,16 +307,15 @@ def parity(dev):
             if first is None:
                 first = out
             else:
-                check(torch.equal(out[3], first[3])
-                      and torch.equal(out[2], first[2])
-                      and torch.equal(out[1], first[1]),
-                      f"{what}: labels, distances or counts changed with "
-                      "the grid")
+                check(all(torch.equal(a, b) for a, b in zip(out[:4],
+                                                            first[:4])),
+                      f"{what}: labels, distances, counts or sums changed "
+                      "with the grid")
 
         # the full persistent grid with several row tiles a block and a
         # ragged last tile, as at the main shape
         xbs = tc._side(xb, tier)
-        check(-(-mb // tc.TILE_M) > tc._lloyd_blocks(mb, n, k, tier),
+        check(-(-mb // tc.TILE_M) > tc._lloyd_plan(mb, n, k, sms).grid,
               "many-tile case has no more row tiles than blocks")
         want = tc._lloyd_plain(tier, xbs, ys, mb, n, k)
         out, err = lloyd_parity(tier, xbs, ys, want, mb, n, k, scale_b,
@@ -408,15 +414,33 @@ def main_path(res, dev):
     agree = 1.0 - bad.numel() / MAIN_M
     del emb, emb_lab
 
-    # steady-state iteration time on the prepared operands
+    # steady-state iteration time on the prepared operands; a trace of the
+    # same iterations (the card's busy time, its idle share between the
+    # first kernel's start and the last one's end, the host's runtime
+    # calls); the assignment alone (kmeans_predict: fused_argmin)
     with tprec.scope("high"):
         ops, meta = tk.lloyd_prepare(x, MAIN_N)
-        it_ms = cuda_ms(lambda: tk.lloyd_step_prepared(ops, c, **meta), 5)
+
+        def step():
+            return tk.lloyd_step_prepared(ops, c, **meta)
+
+        it_ms = cuda_ms(step, 20)
+        reps = 10
+        events, runtime = device_trace(step, reps)
+        span = max(e for _, _, e in events) - min(s for _, s, _ in events)
+        busy = busy_us(events)
+        predict_ms = cuda_ms(lambda: tk.kmeans_predict(res, x, c), 2)
     emit("main_path", shape=[MAIN_M, MAIN_K], n_clusters=MAIN_N,
          tier="high", n_iter=n_iter, inertia=float(inertia),
          start_cost=start_cost, wall_s=wall, ms_per_iter=it_ms,
-         iters_per_s=1000.0 / it_ms, embedding_argmin_agreement=agree,
-         launches=launches)
+         iters_per_s=1000.0 / it_ms, kmeans_predict_ms=predict_ms,
+         iteration_trace=dict(
+             busy_ms_per_iter=busy / reps / 1e3,
+             span_ms_per_iter=span / reps / 1e3,
+             idle_share=1.0 - busy / span,
+             device_ops_per_iter=len(events) / reps,
+             runtime_calls=runtime),
+         embedding_argmin_agreement=agree, launches=launches)
     return x, c, ops, launches
 
 
@@ -985,7 +1009,9 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, launches, parity_errs):
             cuda_ms(lambda: torch.topk(v_ins, ik, largest=False), 5),
             "torch.topk(v, k, largest=False)", 0.0, shape=[ir, ic], k=ik,
             descending_rows_ms=cuda_ms(
-                lambda: tti._topk_insert(v_desc, ik, True), 3))
+                lambda: tti._topk_insert(v_desc, ik, True), 3),
+            descending_rows_library_ms=cuda_ms(
+                lambda: torch.topk(v_desc, ik, largest=False), 5))
 
         # radix threshold and emit at the select_k_bars shape; the kNN
         # chunk's numbers (above) go beside them
@@ -1032,6 +1058,79 @@ def cdist_topk(q, db, k, rows=131072):
 
 
 CDIST_ROWS = 65536
+# BASELINE config 5's Lloyd shape: 10M x 256, k = 4096 (planned, not run)
+CONFIG5_LLOYD = (10_000_000, 4096, 256)
+
+
+def device_trace(fn, reps):
+    """``reps`` calls of ``fn()`` (after one warm-up) under torch.profiler:
+    the card's kernels and copies as ``(name, start_us, end_us)``, and the
+    host's CUDA runtime calls counted by name (the trace's closing
+    ``cudaDeviceSynchronize`` among them)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device, runtime = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            device.append((e.name, e.time_range.start, e.time_range.end))
+        elif e.name.startswith("cuda"):
+            runtime[e.name] = runtime.get(e.name, 0) + 1
+    check(bool(device), "torch.profiler saw no work on the card")
+    return device, runtime
+
+
+def busy_us(events):
+    """Microseconds in which at least one of ``events`` ran."""
+    total, end = 0.0, float("-inf")
+    for _, s, e in sorted(events, key=lambda ev: ev[1]):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def lloyd_split(c, ops, m):
+    """The tier-'high' Lloyd pass at the main shape split into its argmin
+    and its sums (the counting sort, the segment sums, the fix-up): device
+    ms a pass, summed by kernel name from a trace of three passes."""
+    from raft_tpu_torch.linalg import contractions as tc
+
+    reps = 3
+    events, _ = device_trace(lambda: tc.fused_lloyd_prepared(ops, c, m=m),
+                             reps)
+    argmin = [ev for ev in events if "lloyd_argmin" in ev[0]]
+    sums = [ev for ev in events
+            if "lloyd_" in ev[0] and "lloyd_argmin" not in ev[0]]
+    check(len(argmin) == reps and len(sums) >= 5 * reps,
+          f"Lloyd trace: {len(argmin)} argmin and {len(sums)} sums kernels "
+          f"in {reps} passes")
+    return dict(argmin_ms=sum(e - s for _, s, e in argmin) / reps / 1e3,
+                sums_ms=sum(e - s for _, s, e in sums) / reps / 1e3)
+
+
+def lloyd_plan_phase(dev):
+    """The Lloyd pass's plan (argmin grid, row chunks, scratch) at the
+    main shape and at BASELINE config 5's (10M x 256, k = 4096): worked
+    out by the wrapper's planner, not launched."""
+    import torch
+
+    from raft_tpu_torch.linalg import contractions as tc
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    emit("lloyd_plan", multiprocessors=sms, **{
+        what: dict(zip(("m", "n", "k"), shape),
+                   **tc._lloyd_plan(*shape, sms)._asdict())
+        for what, shape in (("main", (MAIN_M, MAIN_N, MAIN_K)),
+                            ("config5", CONFIG5_LLOYD))})
 
 
 def cdist_argmin(x, y, rows=CDIST_ROWS):
@@ -1094,6 +1193,7 @@ def kernel_numbers(x, c, ops, parity_errs, launches):
                     check(bool((err <= REL * dscale[:, None] + 1e-6).all()),
                           f"{name} {tier} at main shape: max err "
                           f"{float(err.max())}")
+                    rel_err = float((err / dscale[:, None]).max())
                     agree = None
                 else:
                     what = f"{name} {tier} at main shape"
@@ -1105,6 +1205,7 @@ def kernel_numbers(x, c, ops, parity_errs, launches):
                     err = (got[-2] - want[-2]).abs()[same]
                     check(bool((err <= REL * dscale[same] + 1e-6).all()),
                           f"{what}: distance error")
+                    rel_err = float((err / dscale[same]).max())
                 max_err = float(err.max())
                 sums_rel = None
                 if name == "fused_lloyd":
@@ -1119,6 +1220,7 @@ def kernel_numbers(x, c, ops, parity_errs, launches):
                     ms=cuda_ms(lambda: case["run"](tier, xs, ys), 3),
                     plain_ms=cuda_ms(lambda: case["plain"](tier, xs, ys), 3),
                     bound_ms=b, bound_by=by, max_abs_err=max_err,
+                    max_err_over_norms=rel_err,
                     label_agreement=agree, differing_labels=(
                         None if agree is None else bad.numel()),
                     sums_err_over_mass=sums_rel)
@@ -1126,6 +1228,8 @@ def kernel_numbers(x, c, ops, parity_errs, launches):
             if name == "pairwise_tile":
                 for tier, row in by_tier.items():
                     row["tile"] = tc.PAIRWISE_ROUTE[tier]
+            if name == "fused_lloyd":
+                by_tier["high"].update(lloyd_split(c, ops, m))
             high = by_tier["high"]
             spec = kernels.REGISTRY[name]
             table.append({
@@ -1133,6 +1237,7 @@ def kernel_numbers(x, c, ops, parity_errs, launches):
                 "source": f"raft_tpu_torch/{spec.source}",
                 "replaces": spec.replaces, "launches": launches[name],
                 "max_abs_err": max(high["max_abs_err"], parity_errs[name]),
+                "max_err_over_norms": high["max_err_over_norms"],
                 "ms": high["ms"], "plain_ms": high["plain_ms"],
                 "bound_ms": high["bound_ms"], "bound_by": high["bound_by"],
                 "library_ms": (None if case["library"] is None
@@ -1143,6 +1248,8 @@ def kernel_numbers(x, c, ops, parity_errs, launches):
                 "shape": [m, n, k], "tier": "high",
                 **({"tile": by_tier["high"]["tile"]}
                    if name == "pairwise_tile" else {}),
+                **({k_: high[k_] for k_ in ("argmin_ms", "sums_ms")}
+                   if name == "fused_lloyd" else {}),
                 "other_tiers": {t: by_tier[t] for t in ("default",
                                                         "highest")}})
 
@@ -1400,7 +1507,7 @@ def config4_phase(res, dev):
 
     from raft_tpu_torch import kernels
     from raft_tpu_torch.random import RngState, rmat_rectangular_gen
-    from raft_tpu_torch.sparse import linalg
+    from raft_tpu_torch.sparse import grid_spmv, linalg
     from raft_tpu_torch.sparse.solver import (LanczosConfig,
                                               lanczos_compute_eigenpairs)
 
@@ -1460,9 +1567,25 @@ def config4_phase(res, dev):
     # the hub row's share of csr_spmm: config 4 without its longest row
     no_hub = rows_subset(g, lengths < lengths.max())
     no_hub_ms = cuda_ms(lambda: linalg.spmm(no_hub, b16), 10)
+    no_hub_spmv_ms = cuda_ms(lambda: linalg.spmv(no_hub, x), 20)
     del no_hub
     tail = {"without_longest_row_spmm_k16_ms": no_hub_ms,
-            "longest_row_share_of_spmm": 1.0 - no_hub_ms / spmm_ms}
+            "longest_row_share_of_spmm": 1.0 - no_hub_ms / spmm_ms,
+            "without_longest_row_spmv_ms": no_hub_spmv_ms,
+            "longest_row_share_of_spmv": 1.0 - no_hub_spmv_ms / spmv_ms}
+    # the gathers' share of the SpMV: every column index 0, so that every
+    # x[indices[j]] hits the cache, beside cuSPARSE on the same matrix
+    zero_cols = torch.zeros_like(g.indices)
+    owners = grid_spmv._spmv_owners(g.indptr, g.indices.numel())
+    tail["columns_zeroed_spmv_ms"] = cuda_ms(lambda: grid_spmv._spmv(
+        g.indptr, zero_cols, g.data, x, n, owners), 20)
+    with warnings.catch_warnings():       # torch's sparse-CSR beta notices
+        warnings.simplefilter("ignore", UserWarning)
+        lib0 = torch.sparse_csr_tensor(g.indptr, zero_cols, g.data,
+                                       size=g.shape)
+    tail["columns_zeroed_cusparse_ms"] = cuda_ms(lambda: torch.mv(lib0, x),
+                                                 20)
+    del zero_cols, lib0, owners
     for part, rows in (("short_rows", lengths <= 1024),
                        ("long_rows", lengths > 1024)):
         sub = rows_subset(g, rows)
@@ -1629,8 +1752,12 @@ def sparse_numbers(g, x, b16, launches, errs):
              "torch.sparse_csr_tensor(...) @ B (cuSPARSE)")):
         b, nbytes = spmv_bound(nnz, n, n, k, idx_bytes)
 
-        def run(kernel=kernel, dense=dense):
-            return kernel(*ops, dense, n)
+        # the SpMV with its plan's chunk owners, as the entry points run it
+        extra = (tg._spmv_owners(g.indptr, g.indices.numel()),) \
+            if name == "csr_spmv" else ()
+
+        def run(kernel=kernel, dense=dense, extra=extra):
+            return kernel(*ops, dense, n, *extra)
 
         def plain(plain_fn=plain_fn, dense=dense):
             return plain_fn(*ops, dense, n)
@@ -2291,19 +2418,19 @@ def probe_phase(res, dev, db, q, parity_err):
             "selection_share_of_fused_topk": share}
 
 
-def hgmma_count(build, kernels):
-    """HGMMA (wgmma) instructions in the built pairwise_tile library, by
+def hgmma_count(build, kernels, name):
+    """HGMMA (wgmma) instructions in kernel ``name``'s built library, by
     the toolkit's cuobjdump; None where the toolkit has none."""
     from pathlib import Path
 
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
     if not cuobjdump.is_file():
         return None
-    lib = build.library_path(kernels.REGISTRY["pairwise_tile"])
+    lib = build.library_path(kernels.REGISTRY[name])
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     count = sass.count("HGMMA")
-    check(count > 0, "pairwise_tile built without wgmma instructions")
+    check(count > 0, f"{name} built without wgmma instructions")
     return count
 
 
@@ -2340,13 +2467,15 @@ def main():
          max_registers=max(map(int, re.findall(r"Used (\d+) registers",
                                                ptxas)), default=None),
          spill_bytes=sum(map(int, re.findall(r"(\d+) bytes spill", ptxas))),
-         pairwise_tile_hgmma=hgmma_count(build, kernels))
+         hgmma={name: hgmma_count(build, kernels, name)
+                for name in ("pairwise_tile", "fused_lloyd")})
 
     parity_errs = parity(dev)
     parity_errs.update(topk_parity(dev))
     parity_errs.update(sparse_parity(dev))
     parity_errs.update(new_kernel_parity(dev))
     x, c, ops, launches = main_path(res, dev)
+    lloyd_plan_phase(dev)
     small_fit_matches_cpu(res, dev)
     pairwise_phase(res, dev)
     unexp_launches, unexp_err = unexpanded_pairwise_phase(res, dev)

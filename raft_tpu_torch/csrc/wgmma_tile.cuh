@@ -16,7 +16,12 @@
 // only the order of the f32 sums differs from the CUDA-core tile's.
 //
 // Pipeline: one block of two warpgroups a streaming multiprocessor walks
-// the output tiles (row tile, column tile; column fastest) persistently.
+// the output tiles (row tile, column tile; column fastest) persistently,
+// in one of two walks: the flat walk (block b takes the flattened tiles
+// b, b + G, b + 2G, ...; pairwise_tile.cu) or the row-owning walk (block b
+// takes row tiles b, b + G, ... and inside each all its column tiles in
+// order, so that a row's running reduction stays in registers;
+// fused_lloyd.cu).
 // Each tile's depth goes in stages of 64 (one 128-byte row of bf16 a tile
 // row), two stages in a ring, filled by cp.async (zero-fill past m, n and
 // k) into the 128-byte-swizzled layout wgmma reads: row r of a stage at
@@ -169,11 +174,14 @@ __device__ __forceinline__ int frag_col(int i) {
   return (i >> 2) * 8 + 2 * (threadIdx.x & 3) + (i & 1);
 }
 
+enum Walk { kFlatWalk = 0, kRowWalk = 1 };
+
 // The persistent walk over output tiles with its two-stage operand ring.
 // Every thread of the block constructs it and calls cross() once a tile,
-// in the order of next_tile(); the block must have kThreads threads and
-// Layout<HALVES>::kRingBytes of 1024-byte aligned shared memory at ring.
-template <int HALVES>
+// in the order of first() and next(); the block must have kThreads
+// threads and Layout<HALVES>::kRingBytes of 1024-byte aligned shared
+// memory at ring. The row-owning walk needs 2 x tiles < 2^31.
+template <int HALVES, int WALK = kFlatWalk>
 struct Pipe {
   const uint16_t *x0, *x1, *y0, *y1;
   int64_t ldx, ldy;
@@ -189,13 +197,26 @@ struct Pipe {
         n(n_), k(k_), ring(smem_u32(ring_)),
         tiles_n((n_ + kBN - 1) / kBN),
         tiles(((m_ + kBM - 1) / kBM) * ((n_ + kBN - 1) / kBN)),
-        nk((k_ + kBK - 1) / kBK), ld_tile(blockIdx.x), ld_kc(0), stage(0) {
+        nk((k_ + kBK - 1) / kBK), ld_tile(first()), ld_kc(0), stage(0) {
     issue(0);
     issue(1);
   }
 
   __device__ int row0(int tile) const { return (tile / tiles_n) * kBM; }
   __device__ int col0(int tile) const { return (tile % tiles_n) * kBN; }
+
+  // this block's first tile, and the tile after `tile`, of the walk
+  __device__ int first() const {
+    return WALK == kRowWalk ? static_cast<int>(blockIdx.x) * tiles_n
+                            : static_cast<int>(blockIdx.x);
+  }
+  __device__ int next(int tile) const {
+    if constexpr (WALK == kRowWalk)
+      return tile % tiles_n == tiles_n - 1
+                 ? tile + 1 + (static_cast<int>(gridDim.x) - 1) * tiles_n
+                 : tile + 1;
+    return tile + static_cast<int>(gridDim.x);
+  }
 
   // Load the next stage of the walk into ring slot s; commits a group even
   // when the walk is over, so that the group count stays uniform.
@@ -211,7 +232,7 @@ struct Pipe {
         load_tile(st + 3 * kOperandBytes, y1, ldy, c0, n, k0, k);
       if (++ld_kc == nk) {
         ld_kc = 0;
-        ld_tile += gridDim.x;
+        ld_tile = next(ld_tile);
       }
     }
     cp_async_commit();

@@ -74,9 +74,9 @@ REGISTRY: Dict[str, KernelSpec] = {
             name="fused_lloyd",
             source="csrc/fused_lloyd.cu",
             symbol="raft_fused_lloyd",
-            # tier, operands..., sums, counts, val, idx, part0, part1,
-            # part_cnt, blocks, m, n, k, stream
-            argtypes=(_I,) + _OPERANDS + (_P, _P, _P, _P, _P, _P, _P,
+            # tier, operands..., sums, counts, val, idx, iscr, part,
+            # grid, m, n, kd, k, chunk, stream
+            argtypes=(_I,) + _OPERANDS + (_P, _P, _P, _P, _P, _P, _I, _I,
                                           _I, _I, _I, _I, _P),
             plain="raft_tpu_torch.linalg.contractions._lloyd_plain",
             ports="raft_tpu/linalg/contractions.py:_lloyd_kernel, "
@@ -136,8 +136,10 @@ REGISTRY: Dict[str, KernelSpec] = {
             name="csr_spmv",
             source="csrc/csr_spmv.cu",
             symbol="raft_csr_spmv",
-            # dtype, idx64, indptr, indices, data, x, y, n_rows, stream
-            argtypes=(_I, _I, _P, _P, _P, _P, _P, _I, _P),
+            # dtype, idx64, indptr, indices, data, x, y, n_rows, n_chunks,
+            # seg_len, lpe, owner, part, stream
+            argtypes=(_I, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P,
+                      _P),
             plain="raft_tpu_torch.sparse.grid_spmv._spmv_plain",
             ports="raft_tpu/sparse/grid_spmv.py:_tree_gather_kernel, "
                   "_segsum_kernel, _reduce_kernel",

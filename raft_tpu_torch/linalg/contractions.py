@@ -34,11 +34,11 @@ The TPU tile knobs of the reference functions (``tm``, ``tn``,
 ``packed``, ``counts_mxu``) have no counterpart: the CUDA kernels use
 fixed 128 x 128 tiles that fit Hopper's 227 KB of shared memory a block
 and mask ragged edges, so the reference's VMEM planner and its fallback
-path are gone. What is left to plan is the persistent grid of the Lloyd
-pass (:func:`_lloyd_blocks`) and, for the distance tile's tensor-core
-route at ``'default'`` and ``'high'`` (:data:`PAIRWISE_ROUTE`), the bf16
-operand rows with their depth padded by zero columns to a multiple of 8
-(:func:`_wgmma_operands`).
+path are gone. What is left to plan is the Lloyd pass's argmin grid and
+scratch (:func:`_lloyd_plan`) and, for the tensor-core route at
+``'default'`` and ``'high'`` (:data:`PAIRWISE_ROUTE`, the Lloyd pass's
+argmin alike), the bf16 operand rows with their depth padded by zero
+columns to a multiple of 8 (:func:`_wgmma_operands`).
 """
 
 from __future__ import annotations
@@ -71,12 +71,16 @@ PAIRWISE_ROUTE = {"default": "wgmma", "high": "wgmma", "highest": "fma"}
 # bf16 (16 bytes), so every 16-byte copy of a row is whole.
 WGMMA_DEPTH = 8
 
-# Persistent grid of the Lloyd pass: two blocks per SM of a 132-SM H100,
-# fixed by the shapes and never by the card, so the order of the sums (and
-# with it every bit of the result) is the same on any card. Each block
-# owns a partial [n, k] sum (two at tier 'high'); the scratch is capped.
-LLOYD_BLOCKS = 264
-LLOYD_SCRATCH_BYTES = 1 << 30
+# The Lloyd pass (csrc/fused_lloyd.cu): an argmin on a persistent grid of
+# one block a multiprocessor (132 on an H100 SXM), then sums from the
+# labels alone, so no result depends on the grid. The sums group the rows
+# by label, a warp a chunk of at least LLOYD_ROW_CHUNK rows, the chunk
+# doubled until the (chunk, cluster) counters fit LLOYD_HIST_ENTRIES; a
+# warp then sums at most LLOYD_SEG of a cluster's sorted rows.
+LLOYD_SMS = 132
+LLOYD_ROW_CHUNK = 1024
+LLOYD_HIST_ENTRIES = 1 << 22
+LLOYD_SEG = 256
 
 # One side of a contraction in the tier's operand format: v0 (f32 rows,
 # or the bf16 hi halves at 'high'), v1 (the bf16 lo halves, else None),
@@ -242,16 +246,20 @@ def _operand_args(xs: Side, ys: Side):
             _ptr(ys.v0), _ptr(ys.v1), _ptr(ys.norms), ys.v0.stride(0))
 
 
-def _wgmma_side(side: Side, tier: str, rows: int, k: int, kp: int) -> Side:
+def _wgmma_side(side: Side, tier: str, rows: int, k: int, kp: int,
+                zero_tail: bool = False) -> Side:
     """Rows ``[:rows, :k]`` of one side in the wgmma route's format: bf16
     (the f32 rows of 'default' rounded half to even; the halves of 'high'
     as they are), copied with zero columns up to depth ``kp`` where the
     depth, a row stride or a base is not 16-byte aligned, else the same
-    memory."""
+    memory. ``zero_tail``: the caller vouches that columns ``k .. kp``
+    of the side, where it has them, are zeros, so they serve as the
+    padding."""
     parts = [side.v0] if tier == "default" else [side.v0, side.v1]
-    parts = [p[:rows, :k].to(torch.bfloat16) for p in parts]
-    if kp != k or any(p.stride(0) % WGMMA_DEPTH or p.data_ptr() % 16
-                      for p in parts):
+    width = kp if zero_tail and side.v0.shape[1] >= kp else k
+    parts = [p[:rows, :width].to(torch.bfloat16) for p in parts]
+    if kp != width or any(p.stride(0) % WGMMA_DEPTH or p.data_ptr() % 16
+                          for p in parts):
         padded = []
         for p in parts:
             q = p.new_zeros((rows, kp))
@@ -261,13 +269,14 @@ def _wgmma_side(side: Side, tier: str, rows: int, k: int, kp: int) -> Side:
     return Side(parts[0], parts[1] if len(parts) == 2 else None, side.norms)
 
 
-def _wgmma_operands(tier: str, xs: Side, ys: Side, m: int, n: int, k: int):
+def _wgmma_operands(tier: str, xs: Side, ys: Side, m: int, n: int, k: int,
+                    x_zero_tail: bool = False):
     """``(xs, ys, kp)``: both sides in the wgmma route's format and the
     padded depth. The zero columns add exact zeros, so the plain version
     gives the same result on these operands at depth kp."""
     kp = cdiv(k, WGMMA_DEPTH) * WGMMA_DEPTH
-    return (_wgmma_side(xs, tier, m, k, kp), _wgmma_side(ys, tier, n, k, kp),
-            kp)
+    return (_wgmma_side(xs, tier, m, k, kp, x_zero_tail),
+            _wgmma_side(ys, tier, n, k, kp), kp)
 
 
 def _pairwise_tile(tier: str, metric: str, xs: Side, ys: Side,
@@ -304,43 +313,68 @@ def _fused_argmin(tier: str, metric: str, xs: Side, ys: Side,
     return val, idx
 
 
-def _lloyd_blocks(m: int, n: int, k: int, tier: str) -> int:
-    """Persistent blocks of the Lloyd pass: :data:`LLOYD_BLOCKS`, fewer
-    when there are fewer row tiles, or when the partial sums would
-    exceed :data:`LLOYD_SCRATCH_BYTES`."""
-    halves = 2 if tier == "high" else 1
-    per_block = 4 * n * (k * halves + 1)
-    return max(1, min(LLOYD_BLOCKS, cdiv(m, TILE_M),
-                      LLOYD_SCRATCH_BYTES // per_block))
+LloydPlan = namedtuple("LloydPlan", "grid row_chunk row_chunks sum_chunks "
+                       "int_words part_floats scratch_bytes")
+
+
+def _lloyd_plan(m: int, n: int, k: int, sms: int = LLOYD_SMS,
+                blocks: Optional[int] = None) -> LloydPlan:
+    """The Lloyd pass's launch plan for m rows, n clusters, depth k:
+
+    - ``grid``: the argmin's persistent blocks, ``blocks`` or one a
+      multiprocessor, never more than the 128-row tiles; no term in n;
+    - ``row_chunk``, ``row_chunks``: the rows a warp groups by label, and
+      their warps;
+    - ``sum_chunks``: the chunk warps of the sums, one per LLOYD_SEG rows;
+    - ``int_words`` (the (chunk, cluster) counters, the clusters' totals
+      and starts, the sorted row ids) and ``part_floats`` (the chunk
+      warps' partial sums): the scratch, O(m + chunks (n + k)) and never a
+      term in grid x n x k."""
+    if min(m, n, k, sms) < 1 or (blocks is not None and blocks < 1):
+        raise ValueError(f"bad Lloyd plan arguments m={m} n={n} k={k} "
+                         f"sms={sms} blocks={blocks}")
+    grid = min(sms if blocks is None else blocks, cdiv(m, TILE_M))
+    row_chunk = LLOYD_ROW_CHUNK
+    while cdiv(m, row_chunk) > 1 and cdiv(m, row_chunk) * n > \
+            LLOYD_HIST_ENTRIES:
+        row_chunk *= 2
+    row_chunks = cdiv(m, row_chunk)
+    sum_chunks = m // LLOYD_SEG + 1
+    int_words = row_chunks * n + n + (n + 1) + m
+    part_floats = sum_chunks * k
+    return LloydPlan(grid, row_chunk, row_chunks, sum_chunks, int_words,
+                     part_floats, 4 * (int_words + part_floats))
 
 
 def _fused_lloyd(tier: str, xs: Side, ys: Side, m: int, n: int, k: int,
-                 blocks: Optional[int] = None):
+                 blocks: Optional[int] = None, x_zero_tail: bool = False):
     """(sums, counts, clamped min dist², labels): csrc/fused_lloyd.cu on
-    CUDA, on ``blocks`` persistent blocks (default :func:`_lloyd_blocks`;
-    a test passes fewer to put many row tiles on each block)."""
+    CUDA, its argmin on ``blocks`` persistent blocks (default one a
+    multiprocessor; a test passes fewer to put many row tiles on each
+    block; no result depends on it). ``x_zero_tail``: as
+    :func:`_wgmma_side`."""
     if _on_cpu(xs, ys):
         return _lloyd_plain(tier, xs, ys, m, n, k)
     _check_side(xs, tier, m, k, "x")
     _check_side(ys, tier, n, k, "y")
     dev = xs.v0.device
-    if blocks is None:
-        blocks = _lloyd_blocks(m, n, k, tier)
-    elif blocks < 1:
-        raise ValueError(f"blocks must be >= 1, got {blocks}")
+    plan = _lloyd_plan(m, n, k, torch.cuda.get_device_properties(
+        dev).multi_processor_count, blocks)
+    kd = k
+    if tier != "highest":
+        xs, ys, kd = _wgmma_operands(tier, xs, ys, m, n, k, x_zero_tail)
     f32 = dict(dtype=torch.float32, device=dev)
     sums = torch.empty((n, k), **f32)
     counts = torch.empty((n,), **f32)
     val = torch.empty((m,), **f32)
     idx = torch.empty((m,), dtype=torch.int32, device=dev)
-    part0 = torch.empty((blocks, n, k), **f32)
-    part1 = torch.empty((blocks, n, k), **f32) if tier == "high" else None
-    part_cnt = torch.empty((blocks, n), dtype=torch.int32, device=dev)
+    iscr = torch.empty((plan.int_words,), dtype=torch.int32, device=dev)
+    part = torch.empty((plan.part_floats,), **f32)
     kernels.launch("fused_lloyd", dev, _TIER_CODE[tier],
                    *_operand_args(xs, ys), sums.data_ptr(),
                    counts.data_ptr(), val.data_ptr(), idx.data_ptr(),
-                   part0.data_ptr(), _ptr(part1), part_cnt.data_ptr(),
-                   blocks, m, n, k)
+                   iscr.data_ptr(), part.data_ptr(), plan.grid, m, n, kd, k,
+                   plan.row_chunk)
     return sums, counts, val, idx
 
 
@@ -410,15 +444,23 @@ def lloyd_prepare(x, n_clusters: int):
     Returns ``(ops, meta)``: ``ops = (xh, xl, xn)`` for
     :func:`fused_lloyd_prepared`, ``meta = {"m": rows}`` its keyword
     arguments; or ``(None, None)`` when the tier is not ``'high'`` (the
-    caller then uses :func:`fused_lloyd_pallas`). Results of the prepared
-    pass are bitwise those of :func:`fused_lloyd_pallas`: same kernel,
-    same operand bytes."""
+    caller then uses :func:`fused_lloyd_pallas`). On the card the halves
+    are already in the wgmma layout (depth and row stride padded with
+    zero columns to a multiple of 8), so no iteration re-pads them.
+    Results of the prepared pass are bitwise those of
+    :func:`fused_lloyd_pallas`: same kernel, same operand bytes."""
     x = _as_f32(x)
     if x.dim() != 2 or n_clusters < 1:
         raise ValueError("expected x [m, k] and n_clusters >= 1")
     if current_mode() != "high":
         return None, None
-    return _split_side(x), {"m": int(x.shape[0])}
+    xh, xl, xn = _split_side(x)
+    m, k = x.shape
+    if x.device.type == "cuda":
+        side = _wgmma_side(Side(xh, xl, xn), "high", m, k,
+                           cdiv(k, WGMMA_DEPTH) * WGMMA_DEPTH)
+        xh, xl = side.v0, side.v1
+    return (xh, xl, xn), {"m": int(m)}
 
 
 @with_matmul_precision
@@ -428,14 +470,16 @@ def fused_lloyd_prepared(ops, y, *, m: int):
 
     ``ops`` may also be the reference package's operands (padded to its
     tile grid, carried over by ``raft_tpu_torch.interop``): only rows
-    ``< m`` and the first ``y.shape[1]`` columns are read. Same return
-    contract as :func:`fused_lloyd_pallas`. CUDA kernel:
+    ``< m`` are read, and of the columns past ``y.shape[1]`` only zeros
+    (both packages pad with zeros), as the wgmma route's depth padding.
+    Same return contract as :func:`fused_lloyd_pallas`. CUDA kernel:
     ``csrc/fused_lloyd.cu``."""
     xh, xl, xn = ops
     y = _as_f32(y)
     n, k = y.shape
     xs = Side(xh, xl, xn.reshape(-1))
-    return _fused_lloyd("high", xs, _side(y, "high"), m, n, k)
+    return _fused_lloyd("high", xs, _side(y, "high"), m, n, k,
+                        x_zero_tail=True)
 
 
 @with_matmul_precision
@@ -445,8 +489,8 @@ def fused_lloyd_pallas(x, y) -> Tuple[torch.Tensor, torch.Tensor,
 
     Returns ``(sums [n, k] f32, counts [n] f32, min_dist² [m] f32
     clamped at >= 0, labels [m] int32)``; the caller divides sums by
-    counts. X is read once; sums are accumulated in a fixed order, so the
-    result is bitwise the same from run to run. CUDA kernel:
+    counts. Sums are accumulated in a fixed order, so the result is
+    bitwise the same from run to run. CUDA kernel:
     ``csrc/fused_lloyd.cu``."""
     x, y = _pair(x, y)
     tier = current_mode()

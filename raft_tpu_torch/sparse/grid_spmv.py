@@ -17,13 +17,15 @@ because Mosaic's gather is lane-local and cannot read x at a column index
 directly; its three kernels gather through a select tree, sum each row
 with a segmented scan and accumulate row-window planes. A CUDA thread
 reads x at any column, so each kernel here computes what three compute
-together, straight from the CSR arrays: SpMV one warp a row; SpMM gives
-no warp more than :data:`SPMM_SEG` entries (a warp a row for its first
-ones, a warp per chunk of the entries for the rest of long rows), so
-that a hub row spreads over many warps. The plan
+together, straight from the CSR arrays. Neither gives a warp more than
+:data:`SPMM_SEG` (SpMM) or :data:`SPMV_SEG` (SpMV) entries: a group of
+lanes takes a row's first ones, a warp per chunk of the entries the rest
+of long rows, so that a hub row spreads over many warps and short rows
+fill the warp. The plan
 (:class:`GridSpMV`) keeps the reference's role, "prepare once per
-pattern, apply many times", and holds the CSR pattern on the device: no
-slot grid, no host pack, no shard width.
+pattern, apply many times", and holds the CSR pattern on the device and,
+from the first SpMV on, the row each entry chunk serves
+(:func:`_spmv_owners`): no slot grid, no host pack, no shard width.
 
 Contract (the reference's, ``grid_spmv.py:45-48``): products and sums in
 f32, or in f64 where an operand is f64 (the reference's segment path
@@ -51,9 +53,13 @@ __all__ = ["GridSpMV", "prepare", "spmv", "spmm", "SPAN_WINDOWS"]
 # windows); kept only to validate prepare()'s argument.
 SPAN_WINDOWS = 8
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
-# Entries a warp of csrc/csr_spmm.cu takes at most: a row's first ones,
-# or a chunk of the entry array.
+# Entries a warp of csrc/csr_spmm.cu (csrc/csr_spmv.cu) takes at most: a
+# row's first ones, or a chunk of the entry array.
 SPMM_SEG = 256
+SPMV_SEG = 256
+# Entries a lane of csr_spmv's row groups takes in one step (its loads in
+# flight together).
+SPMV_UNROLL = 4
 
 
 class GridSpMV:
@@ -69,6 +75,14 @@ class GridSpMV:
         self.shape = shape
         self.nnz = nnz              # logical nnz
         self.pad_ratio = 1.0        # no slot grid: nothing is padded
+        self._owners = None         # csr_spmv's chunk owners, at first use
+
+    def spmv_owners(self) -> torch.Tensor:
+        """csr_spmv's chunk owners for this pattern (:func:`_spmv_owners`),
+        computed at first use and kept."""
+        if self._owners is None:
+            self._owners = _spmv_owners(self.indptr, self.indices.numel())
+        return self._owners
 
     @property
     def n_rows(self):
@@ -151,17 +165,60 @@ def _checked(indptr, indices, data, v):
         data.contiguous(), v.contiguous()
 
 
-def _spmv(indptr, indices, data, x, n_rows: int) -> torch.Tensor:
-    """y = A·x: csrc/csr_spmv.cu on CUDA, the plain version on the CPU."""
+def _spmv_lanes(n_entries: int, n_rows: int) -> int:
+    """Lanes a row of csr_spmv's row groups: enough that a row of the mean
+    length (physical entries over rows, host-known) takes two steps of
+    :data:`SPMV_UNROLL` entries a lane, as a power of two in [1, 32]: 4 on
+    BASELINE config 4's graph, the fastest of 1–8 there (PERF.md)."""
+    want = n_entries / max(n_rows, 1) / (2 * SPMV_UNROLL)
+    lpe = 1
+    while lpe < want and lpe < 32:
+        lpe *= 2
+    return lpe
+
+
+def _spmv_owners(indptr: torch.Tensor, n_entries: int) -> torch.Tensor:
+    """csr_spmv's chunk owners: int32 [n_entries // SPMV_SEG + 1], for
+    chunk c (the entries [c SPMV_SEG, (c + 1) SPMV_SEG)) the row holding
+    entry c SPMV_SEG when that entry lies in a long row's tail (a row of
+    more than SPMV_SEG entries, from the first chunk boundary at or after
+    its start), else -1. Torch ops on indptr's device, no host sync; once
+    per sparsity pattern."""
+    seg = SPMV_SEG
+    ip = indptr.long()
+    n_rows = ip.numel() - 1
+    first = torch.arange(n_entries // seg + 1, device=ip.device) * seg
+    r = (torch.searchsorted(ip, first, right=True) - 1).clamp_(0, max(
+        n_rows - 1, 0))
+    s, e = ip[r], ip[r + 1]
+    tail = (first < ip[-1]) & (e - s > seg) & (first >= s)
+    return torch.where(tail, r, -1).to(torch.int32)
+
+
+def _spmv(indptr, indices, data, x, n_rows: int,
+          owners=None) -> torch.Tensor:
+    """y = A·x: csrc/csr_spmv.cu on CUDA, the plain version on the CPU.
+    ``owners``: the pattern's :func:`_spmv_owners`, computed here when not
+    given."""
     dev, indptr, indices, data, x = _checked(indptr, indices, data, x)
     if dev.type == "cpu":
         return _spmv_plain(indptr, indices, data, x, n_rows)
     y = torch.empty(n_rows, dtype=x.dtype, device=dev)
     if n_rows:
+        # one chunk warp (and partial) per SPMV_SEG physical entries: a
+        # host-known bound on the logical entries' chunks, so no sync
+        n_chunks = indices.numel() // SPMV_SEG + 1
+        if owners is None:
+            owners = _spmv_owners(indptr, indices.numel())
+        if owners.shape != (n_chunks,) or owners.dtype != torch.int32:
+            raise ValueError(f"owners must be int32 [{n_chunks}]")
+        part = torch.empty(n_chunks, dtype=x.dtype, device=dev)
         kernels.launch("csr_spmv", dev, _DTYPE_CODE[x.dtype],
                        int(indptr.dtype == torch.int64), indptr.data_ptr(),
                        indices.data_ptr(), data.data_ptr(), x.data_ptr(),
-                       y.data_ptr(), n_rows)
+                       y.data_ptr(), n_rows, n_chunks, SPMV_SEG,
+                       _spmv_lanes(indices.numel(), n_rows),
+                       owners.contiguous().data_ptr(), part.data_ptr())
     return y
 
 
@@ -203,7 +260,8 @@ def spmv(fmt: GridSpMV, x) -> torch.Tensor:
     if tuple(x.shape) != (fmt.n_cols,):
         raise ValueError(f"x must be ({fmt.n_cols},), got {tuple(x.shape)}")
     data, x = _operands(fmt, x)
-    return _spmv(fmt.indptr, fmt.indices, data, x, fmt.n_rows)
+    owners = fmt.spmv_owners() if x.device.type == "cuda" else None
+    return _spmv(fmt.indptr, fmt.indices, data, x, fmt.n_rows, owners)
 
 
 def spmm(fmt: GridSpMV, b) -> torch.Tensor:

@@ -332,11 +332,146 @@ def test_unsupported_device_raises_not_falls_back():
         tc.pairwise_pallas(x, x)
 
 
-def test_lloyd_blocks_plan():
-    assert tc._lloyd_blocks(1 << 20, 1024, 128, "high") == tc.LLOYD_BLOCKS
-    assert tc._lloyd_blocks(300, 1024, 128, "high") == 3
-    # partial sums capped by the scratch budget, never below one block
-    assert tc._lloyd_blocks(1 << 20, 1 << 20, 512, "high") == 1
-    per_block = 4 * 8192 * (256 * 2 + 1)
-    assert tc._lloyd_blocks(1 << 20, 8192, 256, "high") == \
-        tc.LLOYD_SCRATCH_BYTES // per_block
+@pytest.mark.parametrize("m,n,k", [
+    (1 << 20, 1024, 128), (1 << 20, 8192, 128), (1 << 20, 65536, 128),
+    (1 << 20, 1 << 20, 512), (10_000_000, 4096, 256), (300, 1024, 128)])
+def test_lloyd_plan(m, n, k):
+    """The Lloyd pass's plan: the argmin grid is one block a
+    multiprocessor, capped only by the row tiles, whatever the number of
+    clusters; the scratch has no term in grid x n x k and does not change
+    with the grid."""
+    plan = tc._lloyd_plan(m, n, k)
+    assert plan.grid == min(tc.LLOYD_SMS, -(-m // tc.TILE_M))
+    assert plan.grid == tc._lloyd_plan(m, 1, k).grid
+    assert tc._lloyd_plan(m, n, k, blocks=3).grid == min(3, plan.grid)
+    for other in (tc._lloyd_plan(m, n, k, blocks=1),
+                  tc._lloyd_plan(m, n, k, sms=1000)):
+        assert other.scratch_bytes == plan.scratch_bytes
+    # (chunk, cluster) counters within the budget unless one chunk holds
+    # every row; then the sorted ids and the chunk warps' partials
+    assert plan.row_chunks * n <= max(tc.LLOYD_HIST_ENTRIES, n)
+    assert plan.row_chunks == -(-m // plan.row_chunk)
+    assert plan.row_chunk >= tc.LLOYD_ROW_CHUNK
+    bound = 4 * (max(tc.LLOYD_HIST_ENTRIES, n) + 2 * n + 1 + m
+                 + (m // tc.LLOYD_SEG + 1) * k)
+    assert plan.scratch_bytes <= bound
+    with pytest.raises(ValueError):
+        tc._lloyd_plan(m, n, k, blocks=0)
+
+
+# ---------------------------------------------------------------------------
+# csrc/fused_lloyd.cu's sums, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _group_by_label(idx, m, n, plan):
+    """The kernel's stable counting sort: warp w counts the labels of rows
+    [w chunk, (w + 1) chunk) (labels outside [0, n) and rows >= m count
+    nowhere), a scan over (label, chunk) gives each (label, chunk) its
+    first slot, and the warp places its rows in order. Returns the
+    cluster starts [n + 1] and the sorted row ids."""
+    lab = idx[:m].long()
+    valid = (lab >= 0) & (lab < n)
+    hist = torch.zeros(plan.row_chunks, n, dtype=torch.int64)
+    for w in range(plan.row_chunks):
+        r0, r1 = w * plan.row_chunk, min(m, (w + 1) * plan.row_chunk)
+        hist[w] = torch.bincount(lab[r0:r1][valid[r0:r1]], minlength=n)
+    total = hist.sum(0)
+    before = torch.cumsum(hist, 0) - hist            # chunks before ch
+    start = torch.zeros(n + 1, dtype=torch.int64)
+    start[1:] = torch.cumsum(total, 0)
+    order = torch.full((int(start[-1]),), -1, dtype=torch.int64)
+    cursor = before.clone()
+    for w in range(plan.row_chunks):
+        for r in range(w * plan.row_chunk, min(m, (w + 1) * plan.row_chunk)):
+            if valid[r]:
+                c = int(lab[r])
+                order[start[c] + cursor[w, c]] = r
+                cursor[w, c] += 1
+    return start, order
+
+
+def _sums_emulated(start, order, rows, n, seg):
+    """Row groups sum a cluster's first ``seg`` sorted rows; chunk warp w
+    sums the rows of [w seg, (w + 1) seg) at offset >= seg in the cluster
+    holding entry w seg; the fix-up adds a long cluster's partials in
+    chunk order. Returns the sums and how often each entry was summed."""
+    k = rows.shape[1]
+    sums = torch.zeros(n, k)
+    seen = torch.zeros(order.numel(), dtype=torch.int64)
+    for c in range(n):
+        s, e = int(start[c]), int(start[c + 1])
+        sums[c] = rows[order[s:min(e, s + seg)]].sum(0)
+        seen[s:min(e, s + seg)] += 1
+    n_chunks = rows.shape[0] // seg + 1
+    part = torch.zeros(n_chunks, k)
+    for w in range(n_chunks):
+        first = w * seg
+        if first >= int(start[n]):
+            continue
+        c = int(torch.searchsorted(start[:n], first, right=True)) - 1
+        s, e = int(start[c]), int(start[c + 1])
+        a, z = max(first, s + seg), min(first + seg, e)
+        if a < z:
+            part[w] = rows[order[a:z]].sum(0)
+            seen[a:z] += 1
+    for c in range(n):
+        s, e = int(start[c]), int(start[c + 1])
+        if e - s > seg:
+            for q in range((s + seg) // seg, (e - 1) // seg + 1):
+                sums[c] += part[q]
+    return sums, seen
+
+
+def _lloyd_case(name):
+    """(x, y, m): operand rows past m are junk that must never count."""
+    rng = np.random.default_rng(41)
+    if name == "one_cluster_holds_every_row":
+        x = rng.standard_normal((2500, 6)).astype(np.float32)
+        y = np.concatenate([np.zeros((1, 6)), 50 + rng.standard_normal(
+            (4, 6))]).astype(np.float32)
+        return x, y, 2500
+    if name == "empty_clusters":
+        x = rng.standard_normal((1500, 5)).astype(np.float32)
+        y = np.concatenate([rng.standard_normal((3, 5)), 100 + rng.uniform(
+            size=(30, 5))]).astype(np.float32)
+        return x, y, 1500
+    # rows past m (junk) excluded; m not a multiple of the chunk
+    x = rng.standard_normal((3000 + 40, 8)).astype(np.float32)
+    x[3000:] = 1e4
+    y = rng.standard_normal((21, 8)).astype(np.float32)
+    return x, y, 3000
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("name", ["one_cluster_holds_every_row",
+                                  "empty_clusters", "junk_rows_past_m"])
+def test_lloyd_sums_emulated(name, tier):
+    """The grouping and the chunked, in-order sums of csrc/fused_lloyd.cu,
+    emulated from the plain version's labels: the sort is the stable sort
+    by label, every labelled row is summed exactly once, the counts equal
+    _lloyd_plain's exactly and the sums to 1e-5 of the cluster's |x|
+    mass. The summed row is the tier's: hi + lo at 'high' (exact in f32),
+    the bf16-rounded row at 'default', the f32 row at 'highest'."""
+    x, y, m = _lloyd_case(name)
+    xs, ys = tc._side(t(x), tier), tc._side(t(y), tier)
+    nn, k = y.shape
+    sums, counts, _, idx = tc._lloyd_plain(tier, xs, ys, m, nn, k)
+    plan = tc._lloyd_plan(m, nn, k)
+    assert m % plan.row_chunk and plan.row_chunks > 1
+    start, order = _group_by_label(idx, m, nn, plan)
+    assert torch.equal(order, torch.sort(idx[:m].long(), stable=True)[1])
+    assert torch.equal(start[1:] - start[:-1], counts.long())
+    rows = {"high": lambda: xs.v0.float() + xs.v1.float(),
+            "default": lambda: tc._bf16_values(xs.v0),
+            "highest": lambda: xs.v0}[tier]()
+    got, seen = _sums_emulated(start, order, rows, nn, tc.LLOYD_SEG)
+    assert torch.equal(seen, torch.ones_like(seen))
+    mass = torch.zeros(nn, k).index_add_(0, idx[:m].long(), rows[:m].abs())
+    assert bool(((got - sums).abs() <= 1e-5 * mass + 1e-6).all())
+    if name == "one_cluster_holds_every_row":
+        assert int(counts[0]) == m and int(start[1]) - int(start[0]) > \
+            2 * tc.LLOYD_SEG
+    if name == "empty_clusters":
+        assert int((counts == 0).sum()) >= 20
+        assert bool((got[counts == 0] == 0).all())

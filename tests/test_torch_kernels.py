@@ -150,10 +150,11 @@ def test_pairwise_tile_many_tiles_a_block_on_card(card, tier):
 @pytest.mark.parametrize("tier", TIERS)
 def test_lloyd_many_row_tiles_per_block(card, tier):
     """Three persistent blocks over eight row tiles, the last one ragged,
-    so each block adds several tiles into its partial sums, as at full
-    size. Labels, distances and counts do not depend on the grid; sums
-    match the one-tile-a-block grid and the plain version to 1e-5 of the
-    cluster's |x| mass (only the f32 summation order differs)."""
+    so each block of the argmin walks several row tiles, as at full size.
+    Labels, distances, counts and sums do not depend on the grid (the
+    sums are taken from the labels alone, in row order); sums match the
+    plain version to 1e-5 of the cluster's |x| mass (only the f32
+    summation order differs)."""
     m, n, k = 1000, 37, 24
     g = torch.Generator(device=card).manual_seed(12)
     x = torch.randn(m, k, generator=g, device=card)
@@ -167,17 +168,60 @@ def test_lloyd_many_row_tiles_per_block(card, tier):
     want = tc._lloyd_plain(tier, xs, ys, m, n, k)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
-    for i in (1, 2, 3):                          # counts, distances, labels
-        assert torch.equal(got[i], one_tile[i])
+    for a, b in zip(got, one_tile):      # sums, counts, distances, labels
+        assert torch.equal(a, b)
     idx = got[3].long()
     mag = torch.zeros(n, k, device=card).index_add_(0, idx, x.abs())
     tol = 1e-5 * mag + 1e-6
-    assert bool(((got[0] - one_tile[0]).abs() <= tol).all())
     same = idx == want[3].long()
     assert float(same.float().mean()) >= 0.99
     if bool(same.all()):
         assert torch.equal(got[1], want[1])
         assert bool(((got[0] - want[0]).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("m,n,k", [(20000, 8192, 128), (3001, 129, 50),
+                                   (129, 1, 8), (1, 300, 45)])
+def test_lloyd_shapes_on_card(card, tier, m, n, k):
+    """8,192 clusters at depth 128 (past the old per-block scratch cap),
+    and ragged m, n and k around the 128-row tile and the 8-column depth
+    step of the wgmma route: labels equal but at near-ties, distances
+    and sums within 1e-5 of the plain version's scale, counts exact, and
+    two grids bitwise equal in all four outputs."""
+    g = torch.Generator(device=card).manual_seed(31)
+    x = torch.randn(m, k, generator=g, device=card)
+    y = torch.randn(n, k, generator=g, device=card)
+    xs, ys = tc._side(x, tier), tc._side(y, tier)
+    got = _counted("fused_lloyd", lambda: tc._fused_lloyd(
+        tier, xs, ys, m, n, k))
+    for a, b in zip(got, tc._fused_lloyd(tier, xs, ys, m, n, k, 2)):
+        assert torch.equal(a, b)
+    sums, counts, val, idx = got
+    want = tc._lloyd_plain(tier, xs, ys, m, n, k)
+    assert torch.equal(counts, torch.bincount(idx.long(),
+                                              minlength=n).float())
+    scale = (x * x).sum(1) + float((y * y).sum(1).max())
+    same = idx == want[3]
+    assert float(same.float().mean()) >= 0.99
+    d = tc._pairwise_plain(tier, "l2", xs, ys, m, n, k)
+    rows = torch.arange(m, device=card)
+    gap = (d[rows, idx.long()] - d[rows, want[3].long()]).abs()
+    assert bool((gap[~same] <= 1e-5 * scale[~same]).all())
+    assert bool(((val - want[2]).abs()[same] <= 1e-5 * scale[same]).all())
+    if tier == "high":                 # the summed rows: hi and lo halves
+        parts = [xs.v0.float(), xs.v1.float()]
+    elif tier == "default":            # the bf16-rounded rows
+        parts = [x.to(torch.bfloat16).float()]
+    else:
+        parts = [x]
+    own = torch.zeros(n, k, device=card)
+    mag = torch.zeros(n, k, device=card)
+    for p in parts:
+        own.index_add_(0, idx.long(), p)
+        mag.index_add_(0, idx.long(), p.abs())
+    assert bool(((sums - own).abs() <= 1e-5 * mag + 1e-6).all())
 
 
 def _counted(name, fn):
@@ -339,6 +383,40 @@ def test_csr_spmv_empty_matrix_and_int64_indptr_on_card(card):
     x = torch.randn(2500, generator=g, device=card)
     got = tg._spmv(ip.long(), ind, d, x, ip.shape[0] - 1)
     assert torch.equal(got, tg._spmv(ip, ind, d, x, ip.shape[0] - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_csr_spmv_hub_and_ragged_rows_on_card(card, dtype):
+    """csr_spmv's row groups and chunk warps: a hub row of 50,000 entries
+    (about 195 chunks), rows of 0 to 300 entries (some past one
+    row group's share), NaN pads past indptr[-1]: within the band of the
+    plain version, bitwise equal run to run and with int64 indptr."""
+    from raft_tpu_torch.sparse import grid_spmv as tg
+
+    g = torch.Generator(device=card).manual_seed(33)
+    n_rows, n_cols = 5000, 7000
+    lengths = torch.randint(0, 301, (n_rows,), generator=g, device=card)
+    lengths[torch.rand(n_rows, generator=g, device=card) < 0.4] = 0
+    lengths[17] = 50000
+    indptr = torch.zeros(n_rows + 1, dtype=torch.int32, device=card)
+    indptr[1:] = torch.cumsum(lengths, 0)
+    nnz = int(indptr[-1])
+    indices = torch.randint(0, n_cols, (nnz + 77,), generator=g,
+                            device=card, dtype=torch.int32)
+    data = torch.randn(nnz + 77, generator=g, device=card, dtype=dtype)
+    data[nnz:] = float("nan")
+    x = torch.randn(n_cols, generator=g, device=card, dtype=dtype)
+    got = _counted("csr_spmv", lambda: tg._spmv(indptr, indices, data, x,
+                                               n_rows))
+    again = tg._spmv(indptr, indices, data, x, n_rows)
+    wide = tg._spmv(indptr.long(), indices, data, x, n_rows)
+    assert got.dtype == dtype and got.shape == (n_rows,)
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    assert torch.equal(got.view(torch.uint8), wide.view(torch.uint8))
+    want = tg._spmv_plain(indptr, indices, data, x, n_rows)
+    _assert_csr_close(got[:, None], want[:, None], indptr, indices, data, x)
+    assert bool((got[lengths == 0] == 0).all())
 
 
 @pytest.mark.cuda

@@ -561,6 +561,112 @@ def test_spmm_split_covers_each_entry_once(name, idx):
     assert_product_close(n(got), want, a, b)
 
 
+def _tree(lanes):
+    """The kernels' fixed shuffle tree over the last dimension (a power of
+    two): lane v adds lane v ^ off, off halving down to 1; lane 0's sum."""
+    while lanes.shape[-1] > 1:
+        half = lanes.shape[-1] // 2
+        lanes = lanes[..., :half] + lanes[..., half:]
+    return lanes[..., 0]
+
+
+def _lane_sums(prods, start, end, first, stride):
+    """Each of ``stride`` lanes sums, in order, entries first + lane,
+    first + lane + stride, ... below end (entries >= start only)."""
+    out = torch.zeros(stride, dtype=prods.dtype)
+    for lane in range(stride):
+        for j in range(first + lane, end, stride):
+            if j >= start:
+                out[lane] += prods[j]
+    return out
+
+
+def _spmv_emulated(indptr, prods, n_entries, lpe, seg_len):
+    """csrc/csr_spmv.cu's work split and sum order, from the products
+    data[j] * x[indices[j]]. Row groups: lpe lanes take a short row (at
+    most seg_len entries) or a long row's head (up to the first chunk
+    boundary at or after its start), lane v every lpe-th entry from v,
+    added by the tree. Chunk warps: chunk c takes the entries in [c
+    seg_len, (c + 1) seg_len) of the long row the plan's owners name
+    (grid_spmv._spmv_owners), a lane every 32nd, by the tree into partial
+    c; the fix-up adds a long row's partials to y in chunk order. Returns
+    y, how often each entry was summed, and the owners."""
+    n_rows = indptr.numel() - 1
+    ip = indptr.long()
+    y = torch.zeros(n_rows, dtype=prods.dtype)
+    seen = torch.zeros(n_entries, dtype=torch.int64)
+    for r in range(n_rows):
+        s, e = int(ip[r]), int(ip[r + 1])
+        if e - s > seg_len:
+            e = -(-s // seg_len) * seg_len
+        assert e - s <= seg_len
+        y[r] = _tree(_lane_sums(prods, s, e, s, lpe))
+        seen[s:e] += 1
+    owners = tgrid._spmv_owners(indptr, n_entries)
+    part = torch.zeros(owners.numel(), dtype=prods.dtype)
+    for c, r in enumerate(owners.tolist()):
+        if r < 0:
+            continue
+        a, z = c * seg_len, min((c + 1) * seg_len, int(ip[r + 1]))
+        assert a < z
+        part[c] = _tree(_lane_sums(prods, a, z, a, 32))
+        seen[a:z] += 1
+    for r in range(n_rows):
+        s, e = int(ip[r]), int(ip[r + 1])
+        if e - s > seg_len:
+            for c in range(-(-s // seg_len), (e - 1) // seg_len + 1):
+                assert int(owners[c]) == r
+                y[r] += part[c]
+    return y, seen, owners
+
+
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+@pytest.mark.parametrize("name", ["hub_and_empty_rows", "all_empty",
+                                  "one_long_row"])
+def test_spmv_split_emulated(name, idx):
+    """csr_spmv.cu's split at the wrapper's chunk count (physical entries,
+    pads included), lanes (from the mean row length) and chunk owners (the
+    plan's, computed on indptr's device without a host sync): every entry
+    below indptr[-1] is summed exactly once and no pad entry at all; a hub
+    row spreads over many chunk warps; the result, summed in the kernel's
+    order, matches the reference's SpMV, and int32 and int64 indptr give
+    the same owners."""
+    seg_len = tgrid.SPMV_SEG
+    lengths = _split_lengths(name, seg_len)
+    n_rows, nnz, pad = lengths.size, int(lengths.sum()), 9
+    indptr = torch.zeros(n_rows + 1, dtype=idx)
+    indptr[1:] = torch.cumsum(torch.as_tensor(lengths), 0)
+    rng = np.random.default_rng(31)
+    cols = rng.integers(0, 50, nnz + pad).astype(np.int32)
+    vals = rng.normal(size=nnz + pad).astype(np.float32)
+    x = rng.normal(size=50).astype(np.float32)
+    prods = t(vals) * t(x)[torch.as_tensor(cols).long()]
+    lpe = tgrid._spmv_lanes(nnz + pad, n_rows)
+    assert 1 <= lpe <= 32 and lpe & (lpe - 1) == 0
+    got, seen, owners = _spmv_emulated(indptr, prods, nnz + pad, lpe,
+                                       seg_len)
+    assert torch.equal(seen, torch.tensor([1] * nnz + [0] * pad))
+    assert owners.dtype == torch.int32 and torch.equal(
+        owners, tgrid._spmv_owners(indptr.to(torch.int64 if idx ==
+                                             torch.int32 else torch.int32),
+                                   nnz + pad))
+    if name == "hub_and_empty_rows":
+        assert lengths.max() > 20 * seg_len
+        assert int((owners == 3).sum()) >= 20
+    a = sp.csr_matrix((vals[:nnz], cols[:nnz], indptr.numpy()),
+                      shape=(n_rows, 50))
+    want = np.asarray(jlin.spmv(jst.CSRMatrix.from_scipy(a), jnp.asarray(x)))
+    assert_product_close(n(got), want, a, x)
+    assert bool((got[torch.as_tensor(lengths) == 0] == 0).all())
+
+
+@pytest.mark.parametrize("mean,lanes", [(0.0, 1), (8.0, 1), (18.2, 4),
+                                        (33.0, 8), (1e4, 32)])
+def test_spmv_lanes_follow_the_mean_row(mean, lanes):
+    rows = 1000
+    assert tgrid._spmv_lanes(int(mean * rows), rows) == lanes
+
+
 def test_spmm_alpha_beta_and_plan_arguments():
     a, _, _ = _case("random")
     rng = np.random.default_rng(4)
