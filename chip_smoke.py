@@ -26,7 +26,9 @@ just after:
   WARPSORT_FILTERED on 1024 x 65,536 f32, k = 64 (insertion), on
   random and on descending rows;
 - the tune-only 1-NN probe at the kNN shape, beside the fused top-k at
-  k = 1 and 64 (the gap is the selection's share);
+  k = 1, 64 and 256 (the gap is the selection's share);
+- a k sweep at the kNN shape: the fused route against the radix route
+  at k = 16, 64, 128 and 256 (the dispatch bands stay the reference's);
 - BASELINE config 4: the R-MAT graph (scale 20, 10M edges, about 19M
   stored entries) built on the card by the port's generator, one SpMV,
   one SpMM at k = 16 and the fixed 3-restart Lanczos (52 steps);
@@ -44,12 +46,17 @@ It then holds every kernel against its plain version at the shapes
 those paths give it (the kNN radix route's 4096 x 32,768 chunk of
 distances and config 4's graph included) and times it there, with
 ``pairwise_tile``'s tile at each tier (wgmma at 'default' and 'high',
-the FMA tile at 'highest'), the count of HGMMA instructions in the built
-libraries of ``pairwise_tile`` and ``fused_lloyd`` (where the toolkit
-has ``cuobjdump``), the Lloyd pass split into its argmin and its sums
+the FMA tile at 'highest'), ``fused_topk`` at k = 64 and 256 at each
+tier beside the time of its operands' preparation (the split into bf16
+halves, the wgmma route's bf16 rows) on the 2^20-row database, the
+count of HGMMA instructions in the built libraries of
+``pairwise_tile``, ``fused_lloyd``, ``fused_topk`` and ``minonly``
+(where the toolkit has ``cuobjdump``), the Lloyd pass split into its
+argmin and its sums
 by kernel name from a ``torch.profiler`` trace (every output bitwise
 equal on two argmin grids), its plan at BASELINE config 5's shape (not
-run), a trace of k-means iterations (the card's busy time and idle
+run), the fused top-k's split plan at the kNN shape (a ``topk_plan``
+line; worked out, not measured), a trace of k-means iterations (the card's busy time and idle
 share), and ``csr_spmv`` and ``csr_spmm`` on config 4 with and without
 its longest row (the hub row's share). Each
 phase prints one JSON line; the line before the last is the card's name
@@ -840,10 +847,13 @@ def select_path(res, dev):
 # ---------------------------------------------------------------------------
 
 
-def topk_numbers(db, q, v_radix, v_ins, v_desc, launches, parity_errs):
+def topk_numbers(db, q, v_radix, v_ins, v_desc, launches, parity_errs,
+                 hgmma):
     """Each selection kernel at its path's shape: held against its plain
     version, timed beside it, beside a one-call PyTorch yardstick (timed
-    here only) and beside its bound. The kNN radix route's chunk is built
+    here only) and beside its bound; the fused top-k at k = 64 and 256 at
+    every tier, on the tile its route names, beside the time of its
+    operands' preparation. The kNN radix route's chunk is built
     from the path's own data, and pairwise_tile, radix_threshold and
     radix_emit are each held against their plain versions on it. Returns
     the kernels' rows and pairwise_tile's numbers at that chunk."""
@@ -871,57 +881,49 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, launches, parity_errs):
                       **extra})
 
     with torch.no_grad():
-        # fused top-k at the kNN shape, tier 'high', k = 64 (and 256)
+        # fused top-k at the kNN shape, k = 64 and 256, every tier ('high'
+        # is the path's)
         nq, n, d = q.shape[0], db.shape[0], db.shape[1]
-        xs, ys = tc._side(q, "high"), tc._side(db, "high")
-        pq = side_rows(xs, slice(0, PLAIN_Q))
         scale = ((q[:PLAIN_Q].double() ** 2).sum(1)
                  + (db.double() ** 2).sum(1).max()).float()
-        per_k = {}
-        for k in (64, 256):
-            got = tft._fused_topk("high", "l2", xs, ys, nq, n, d, k)
-            want = tft._fused_topk_plain("high", "l2", pq, ys, PLAIN_Q, n,
-                                         d, k)
-            bad, err = topk_lists_agree(
-                (got[0][:PLAIN_Q], got[1][:PLAIN_Q]), want,
-                plain_rows("high", "l2", pq, ys, n, d), scale, REL,
-                f"fused_topk k={k} at the kNN shape")
-            del got, want
-            b, by = bound("high", nq, n, d, 8 * nq * k)
-            per_k[k] = dict(
-                ms=cuda_ms(lambda: tft._fused_topk("high", "l2", xs, ys, nq,
-                                                   n, d, k), 2),
-                plain_ms_at_plain_q=cuda_ms(
-                    lambda: tft._fused_topk_plain("high", "l2", pq, ys,
-                                                  PLAIN_Q, n, d, k), 2),
-                library_ms=cuda_ms(lambda: cdist_topk(q, db, k), 1),
-                bound_ms=b, bound_by=by, differing_indices=bad,
-                max_abs_err=err)
-            torch.cuda.empty_cache()
-        # the non-split kernel's tiers ('default', 'highest'), k = 64
-        other_tiers = {}
-        for tier in ("default", "highest"):
+        by_tier, operands = {}, {}
+        for tier in ("high", "default", "highest"):
             txs, tys = tc._side(q, tier), tc._side(db, tier)
             tpq = side_rows(txs, slice(0, PLAIN_Q))
-            got = tft._fused_topk(tier, "l2", txs, tys, nq, n, d, 64)
-            want = tft._fused_topk_plain(tier, "l2", tpq, tys, PLAIN_Q, n,
-                                         d, 64)
-            bad, err = topk_lists_agree(
-                (got[0][:PLAIN_Q], got[1][:PLAIN_Q]), want,
-                plain_rows(tier, "l2", tpq, tys, n, d), scale, REL,
-                f"fused_topk {tier} at the kNN shape")
-            del got, want
-            b, by = bound(tier, nq, n, d, 8 * nq * 64)
-            other_tiers[tier] = dict(
-                ms=cuda_ms(lambda: tft._fused_topk(tier, "l2", txs, tys, nq,
-                                                   n, d, 64), 2),
-                plain_ms_at_plain_q=cuda_ms(
-                    lambda: tft._fused_topk_plain(tier, "l2", tpq, tys,
-                                                  PLAIN_Q, n, d, 64), 2),
-                bound_ms=b, bound_by=by, differing_indices=bad,
-                max_abs_err=err)
-            del txs, tys, tpq
-            torch.cuda.empty_cache()
+            if tft.ROUTE[tier] == "wgmma":
+                # what each call does before its launch, on the 2^20 rows
+                operands[tier] = dict(
+                    side_ms=cuda_ms(lambda: tc._side(db, tier), 3),
+                    wgmma_operands_ms=cuda_ms(lambda: tc._wgmma_operands(
+                        tier, txs, tys, nq, n, d), 3))
+            by_k = {}
+            for k in (64, 256):
+                what = f"fused_topk {tier} k={k} at the kNN shape"
+                got = tft._fused_topk(tier, "l2", txs, tys, nq, n, d, k)
+                want = tft._fused_topk_plain(tier, "l2", tpq, tys, PLAIN_Q, n,
+                                             d, k)
+                bad, err = topk_lists_agree(
+                    (got[0][:PLAIN_Q], got[1][:PLAIN_Q]), want,
+                    plain_rows(tier, "l2", tpq, tys, n, d), scale, REL, what)
+                del got, want
+                b, by = bound(tier, nq, n, d, 8 * nq * k)
+                by_k[k] = dict(
+                    ms=cuda_ms(lambda: tft._fused_topk(tier, "l2", txs, tys,
+                                                       nq, n, d, k), 2),
+                    plain_ms_at_plain_q=cuda_ms(
+                        lambda: tft._fused_topk_plain(tier, "l2", tpq, tys,
+                                                      PLAIN_Q, n, d, k), 2),
+                    bound_ms=b, bound_by=by, differing_indices=bad,
+                    max_abs_err=err, tile=tft.ROUTE[tier])
+                if tier == "high":
+                    by_k[k]["library_ms"] = cuda_ms(
+                        lambda: cdist_topk(q, db, k), 1)
+                torch.cuda.empty_cache()
+            by_tier[tier] = by_k
+            if tier == "high":
+                xs, ys, pq = txs, tys, tpq
+            else:
+                del txs, tys, tpq
         # where the time goes: the same tile with a 1-wide epilogue (the
         # fused argmin), and the top-k at smaller k
         breakdown = dict(
@@ -929,17 +931,22 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, launches, parity_errs):
                 lambda: tc._fused_argmin("high", "l2", xs, ys, nq, n, d), 2),
             topk_ms_by_k={kk: cuda_ms(lambda: tft._fused_topk(
                 "high", "l2", xs, ys, nq, n, d, kk), 2) for kk in (1, 16)})
-        k64 = per_k[64]
+        k64 = by_tier["high"][64]
         row("fused_topk", k64["ms"], k64["plain_ms_at_plain_q"],
             k64["bound_ms"], k64["bound_by"], k64["library_ms"],
             "torch.cdist + torch.topk(largest=False), chunked over 131,072 "
-            "database rows, then a merge", k64["max_abs_err"],
-            shape=[nq, n, d], k=64, tier="high",
+            "database rows, then a merge",
+            max(r["max_abs_err"] for bk in by_tier.values()
+                for r in bk.values()),
+            shape=[nq, n, d], k=64, tier="high", tile=tft.ROUTE["high"],
+            hgmma=hgmma["fused_topk"],
             plain_q=PLAIN_Q, plain_note=f"plain version timed at {PLAIN_Q} "
             f"queries (the full [{nq}, {n}] f32 matrix and its sort do not "
             "fit); held against the kernel on those rows",
-            differing_indices=k64["differing_indices"], k256=per_k[256],
-            other_tiers=other_tiers, breakdown=breakdown)
+            differing_indices=k64["differing_indices"],
+            k256=by_tier["high"][256],
+            other_tiers={t: by_tier[t] for t in ("default", "highest")},
+            operands=operands, breakdown=breakdown)
         del ys, pq
 
         # the kNN radix route's chunk, built from the path's own data as
@@ -1042,6 +1049,47 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, launches, parity_errs):
     return table, knn_chunk["pairwise_tile"]
 
 
+def knn_k_sweep(db, q):
+    """The kNN dispatch bands on the card: at the kNN shape, 'high', the
+    fused route (knn_fused) against the radix route (_knn_chunked over
+    the k = 1024 plan's chunks) at k = 16, 64, 128 and 256, each held to
+    the other (indices equal but at near-ties, values within the band).
+    The bands themselves stay the reference's (knn_plan)."""
+    import torch
+
+    from raft_tpu_torch.linalg import contractions as tc
+    from raft_tpu_torch.neighbors import brute_force as tbf
+    from raft_tpu_torch.neighbors import fused_topk as tft
+    from raft_tpu_torch.util import precision as tprec
+
+    nq, n, d = q.shape[0], db.shape[0], db.shape[1]
+    chunk = tbf.knn_plan(nq, n, KNN_KS[-1])[1]
+    scale = ((q.double() ** 2).sum(1) + (db.double() ** 2).sum(1).max()
+             ).float()
+    xs, ys = tc._side(q, "high"), tc._side(db, "high")
+    out = {}
+    with tprec.scope("high"), torch.no_grad():
+        for k in (16, 64, 128, 256):
+            fused = tft.knn_fused(q, db, k)
+            radix = tbf._knn_chunked(q, db, k, chunk, "l2")
+            bad, _ = topk_lists_agree(
+                fused, radix, lambda r: tc._pairwise_plain(
+                    "high", "l2", side_rows(xs, r), ys, r.numel(), n, d),
+                scale, REL, f"knn k={k}: fused vs radix route")
+            del fused, radix
+            out[k] = dict(
+                fused_ms=cuda_ms(lambda: tft.knn_fused(q, db, k), 2),
+                radix_ms=cuda_ms(lambda: tbf._knn_chunked(q, db, k, chunk,
+                                                          "l2"), 1),
+                differing_indices=bad,
+                plan_route=tbf.knn_plan(nq, n, k)[0])
+            torch.cuda.empty_cache()
+    emit("knn_k_sweep", shape=[nq, n, d], tier="high", radix_chunk=chunk,
+         by_k=out, tolerance=f"indices equal but where the plain distances "
+         f"lie within {REL} x (|q|^2 + max|x|^2), values within that band")
+    return out
+
+
 def cdist_topk(q, db, k, rows=131072):
     """The library yardstick of the fused top-k: cdist and topk over
     database chunks, then a topk over the pooled candidates."""
@@ -1131,6 +1179,21 @@ def lloyd_plan_phase(dev):
                    **tc._lloyd_plan(*shape, sms)._asdict())
         for what, shape in (("main", (MAIN_M, MAIN_N, MAIN_K)),
                             ("config5", CONFIG5_LLOYD))})
+
+
+def topk_plan_phase(dev):
+    """The fused top-k's split plan (splits, units, grid, scratch) at the
+    kNN shape for k = 64 and 256 and for the probe (k = 1): worked out by
+    the wrapper's planner from the shape and the card's multiprocessors,
+    not measured."""
+    import torch
+
+    from raft_tpu_torch.neighbors import fused_topk as tft
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    emit("topk_plan", multiprocessors=sms, shape=[KNN_Q, KNN_N], **{
+        f"k{k}": tft._split_plan(KNN_Q, KNN_N, k, sms)._asdict()
+        for k in (1, 64, 256)})
 
 
 def cdist_argmin(x, y, rows=CDIST_ROWS):
@@ -2350,9 +2413,9 @@ def cdist_min(q, db, rows=131072):
     return best_v, best_i
 
 
-def probe_phase(res, dev, db, q, parity_err):
+def probe_phase(res, dev, db, q, parity_err, hgmma):
     """_minonly_probe at the kNN shape, 'high', counted; timed beside
-    fused_topk at k = 1 and k = 64 on the same operands, so the gap is
+    fused_topk at k = 1, 64 and 256 on the same operands, so the gap is
     the selection's share; indices against fused_argmin's on the same
     operands and against the plain version at 256 queries."""
     import torch
@@ -2376,7 +2439,7 @@ def probe_phase(res, dev, db, q, parity_err):
         xs, ys = tc._side(q, "high"), tc._side(db, "high")
         ms = cuda_ms(lambda: tft._minonly("high", xs, ys, nq, n, d), 3)
         topk_ms = {kk: cuda_ms(lambda: tft._fused_topk(
-            "high", "l2", xs, ys, nq, n, d, kk), 2) for kk in (1, 64)}
+            "high", "l2", xs, ys, nq, n, d, kk), 2) for kk in (1, 64, 256)}
         scale = ((q.double() ** 2).sum(1)
                  + (db.double() ** 2).sum(1).max()).float()
         av, ai = tc._fused_argmin("high", "l2", xs, ys, nq, n, d)
@@ -2414,6 +2477,7 @@ def probe_phase(res, dev, db, q, parity_err):
             "library_call": "torch.cdist(q, db_chunk).min(1) over 131,072-"
                             "row chunks, folded in order",
             "parity": "pass", "shape": [nq, n, d], "tier": "high",
+            "tile": tft.ROUTE["high"], "hgmma": hgmma,
             "plain_q": PLAIN_Q, "fused_topk_ms": topk_ms,
             "selection_share_of_fused_topk": share}
 
@@ -2460,6 +2524,9 @@ def main():
 
     t0 = time.perf_counter()
     built = build.build()
+    hgmma = {name: hgmma_count(build, kernels, name)
+             for name in ("pairwise_tile", "fused_lloyd", "fused_topk",
+                          "minonly")}
     RECORD["build_logs"] = {n: b["log"] for n, b in built.items()}
     ptxas = "\n".join(b["log"] for b in built.values())
     emit("build", seconds=time.perf_counter() - t0,
@@ -2467,8 +2534,7 @@ def main():
          max_registers=max(map(int, re.findall(r"Used (\d+) registers",
                                                ptxas)), default=None),
          spill_bytes=sum(map(int, re.findall(r"(\d+) bytes spill", ptxas))),
-         hgmma={name: hgmma_count(build, kernels, name)
-                for name in ("pairwise_tile", "fused_lloyd")})
+         hgmma=hgmma)
 
     parity_errs = parity(dev)
     parity_errs.update(topk_parity(dev))
@@ -2476,6 +2542,7 @@ def main():
     parity_errs.update(new_kernel_parity(dev))
     x, c, ops, launches = main_path(res, dev)
     lloyd_plan_phase(dev)
+    topk_plan_phase(dev)
     small_fit_matches_cpu(res, dev)
     pairwise_phase(res, dev)
     unexp_launches, unexp_err = unexpanded_pairwise_phase(res, dev)
@@ -2491,7 +2558,9 @@ def main():
         check(path_launches[name] > 0, f"kNN and select_k paths never "
               f"launched {name}")
     topk_table, pairwise_chunk = topk_numbers(db, q, v_radix, v_ins, v_desc,
-                                              path_launches, parity_errs)
+                                              path_launches, parity_errs,
+                                              hgmma)
+    knn_k_sweep(db, q)
     next(r for r in table if r["name"] == "pairwise_tile")[
         "knn_chunk_shape"] = pairwise_chunk
     table += topk_table
@@ -2500,7 +2569,8 @@ def main():
     table.append(unexpanded_numbers(
         db, q, {"unexpanded_tile": unexp_launches},
         max(parity_errs["unexpanded_tile"], unexp_err)))
-    table.append(probe_phase(res, dev, db, q, parity_errs["minonly"]))
+    table.append(probe_phase(res, dev, db, q, parity_errs["minonly"],
+                             hgmma["minonly"]))
     del db, q, v_radix, v_ins, v_desc
     torch.cuda.empty_cache()
 

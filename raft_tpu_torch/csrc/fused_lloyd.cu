@@ -25,9 +25,13 @@
 //    works on the accumulator fragment in registers: it applies the L2
 //    formula of pairwise_tile's epilogue and folds each of the thread's
 //    two rows into a running (min, argmin) under common.cuh's strict
-//    order (smaller value, then smaller index), across column tiles; at
-//    the row tile's end the four lanes of a quad combine by two shuffles
-//    and write val (clamped at 0, NaN kept) and idx. Tier 'highest' (no
+//    order (smaller value, then smaller index; wgmma_tile.cuh:fold_min),
+//    across column tiles; at the row tile's end the four lanes of a quad
+//    combine by two shuffles (quad_argmin) and write val (clamped at 0,
+//    NaN kept) and idx. It reads the column norms after the product and
+//    branches around columns past n: minonly.cu's branch-free form
+//    (fold_l2_tile, the norms loaded before the product) measured 2-4%
+//    slower on this row walk. Tier 'highest' (no
 //    exact f32 tensor-core product) runs common.cuh's FMA block_argmin on
 //    the same row walk. The order makes the labels independent of G.
 // 2. Sums, from the labels alone (so they cannot depend on G either):
@@ -66,13 +70,6 @@ constexpr int kScanThreads = 1024;
 // stage 1: argmin
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void fold(float v, int c, float& bv, int& bi) {
-  if (before<true>(v, c, bv, bi)) {
-    bv = v;
-    bi = c;
-  }
-}
-
 __device__ __forceinline__ void write_min(float* val, int* idx, int r, int m,
                                           float bv, int bi) {
   if (r < m) {
@@ -109,27 +106,21 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
         const int c = col0 + wg::frag_col(4 * j);
         if (c < n) {
           const float yt = yn[c];
-          fold(metric_value<kMetricL2>(d[4 * j], xt0, yt), c, bv0, bi0);
-          fold(metric_value<kMetricL2>(d[4 * j + 2], xt1, yt), c, bv1, bi1);
+          wg::fold_min(metric_value<kMetricL2>(d[4 * j], xt0, yt), c, bv0,
+                       bi0);
+          wg::fold_min(metric_value<kMetricL2>(d[4 * j + 2], xt1, yt), c,
+                       bv1, bi1);
         }
         if (c + 1 < n) {
           const float yt = yn[c + 1];
-          fold(metric_value<kMetricL2>(d[4 * j + 1], xt0, yt), c + 1, bv0,
-               bi0);
-          fold(metric_value<kMetricL2>(d[4 * j + 3], xt1, yt), c + 1, bv1,
-               bi1);
+          wg::fold_min(metric_value<kMetricL2>(d[4 * j + 1], xt0, yt), c + 1,
+                       bv0, bi0);
+          wg::fold_min(metric_value<kMetricL2>(d[4 * j + 3], xt1, yt), c + 1,
+                       bv1, bi1);
         }
       }
     }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {  // the quad holding each row
-      const float v0 = __shfl_xor_sync(kFull, bv0, off);
-      const int i0 = __shfl_xor_sync(kFull, bi0, off);
-      const float v1 = __shfl_xor_sync(kFull, bv1, off);
-      const int i1 = __shfl_xor_sync(kFull, bi1, off);
-      fold(v0, i0, bv0, bi0);
-      fold(v1, i1, bv1, bi1);
-    }
+    wg::quad_argmin(bv0, bi0, bv1, bi1);
     if ((threadIdx.x & 3) == 0) {
       write_min(val, idx, row0 + rl, m, bv0, bi0);
       write_min(val, idx, row0 + rl + 8, m, bv1, bi1);
@@ -418,10 +409,6 @@ static cudaError_t launch_argmin_wgmma(const void* x0, const void* x1,
   return cudaSuccess;
 }
 
-static bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 }  // namespace raft_port
 
 // Tiers 'default' (0) and 'high' (1) take bf16 rows (x0/y0; at 'high'
@@ -447,8 +434,7 @@ extern "C" int raft_fused_lloyd(int tier, const void* x0, const void* x1,
   const int64_t tiles = static_cast<int64_t>((m + wg::kBM - 1) / wg::kBM) *
                         ((n + wg::kBN - 1) / wg::kBN);
   if (tier != kTierHighest &&
-      (kd % 8 || ldx % 8 || ldy % 8 || !aligned16(x0) || !aligned16(y0) ||
-       (high && (!aligned16(x1) || !aligned16(y1))) ||
+      (!wg::operands_ok(high, kd, ldx, ldy, x0, x1, y0, y1) ||
        2 * tiles >= (int64_t(1) << 31)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -479,7 +465,7 @@ extern "C" int raft_fused_lloyd(int tier, const void* x0, const void* x1,
       idx, hist, start, order, m, n, chunk, chunks);
   const int n_chunks = m / kSeg + 1;
   if (tier == kTierHighest) {
-    if (k % 4 == 0 && ldx % 4 == 0 && aligned16(x0))
+    if (k % 4 == 0 && ldx % 4 == 0 && wg::aligned16(x0))
       launch_sums<float, 1, 4>(start, order, x0, x1, ldx, sums, part,
                                n_chunks, n, k, st);
     else

@@ -12,17 +12,68 @@
 //
 // Bound on an H100 SXM: operations, the same products as fused_topk.cu (at
 // the kNN shape, 4096 x 2^20 x 128 at tier 'high', 3.3 ms at 989 TFLOP/s).
-// Design: the same grid as fused_topk.cu (query tiles of 128 by database
-// splits, the split count chosen by the same rule) and the same distance
-// tile (common.cuh's cross_tile), each block folding its split's columns
-// into per-row (min, first argmin) with block_argmin_range; a second kernel
-// folds each row's split results in split order with a strict <, so the
-// earlier split, and with it the smaller column, wins ties. A min is exact,
-// so the result does not depend on the split count.
+// Design, tiers 'default' and 'high': fused_topk.cu's tile and walk,
+// wgmma_tile.cuh's tensor-core tile in its split walk (work units (row
+// tile, database split), the splits chosen by the same plan), with the
+// L2 argmin epilogue of wgmma_tile.cuh (fold_l2_tile and quad_argmin,
+// on the accumulator fragment, fused_lloyd.cu's fold in a branch-free
+// form: the column norms loaded before the tile's product, a column past
+// n folded as a NaN, which never wins, rather than branched around): each thread folds its 32 distances
+// of each of its two rows into a running (min, first argmin) under
+// common.cuh's strict order, the quad combines by two shuffles at the
+// unit's end, and lane 0 of the quad writes the unit's [split][row]
+// partial. Tier 'highest' (no exact f32 tensor-core
+// product) keeps common.cuh's FMA tile on a (query tile, split) grid, with
+// block_argmin_range. A second kernel folds each row's split results in
+// split order with a strict <, so the earlier split, and with it the
+// smaller column, wins ties. A min is exact, so the result does not depend
+// on the split count or the grid.
 
 #include "common.cuh"
+#include "wgmma_tile.cuh"
 
 namespace raft_port {
+
+template <int HALVES>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    minonly_wgmma(const uint16_t* x0, const uint16_t* x1, const float* xn,
+                  int64_t ldx, const uint16_t* y0, const uint16_t* y1,
+                  const float* yn, int64_t ldy, int m, int n, int k, int tps,
+                  float* part_v, int* part_i) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  wg::Pipe<HALVES, wg::kSplitWalk> pipe(x0, x1, ldx, y0, y1, ldy, m, n, k,
+                                        smem, tps);
+  const int rl = wg::frag_row(0);         // this thread's rows rl, rl + 8
+  float d[wg::kAcc];
+  for (int u = blockIdx.x; u < pipe.units; u += gridDim.x) {
+    const int r0 = pipe.unit_row0(u) + rl, r1 = r0 + 8;
+    const float xt0 = r0 < m ? xn[r0] : 0.f;
+    const float xt1 = r1 < m ? xn[r1] : 0.f;
+    float bv0 = __int_as_float(0x7f800000), bv1 = bv0;   // +inf
+    int bi0 = 0x7fffffff, bi1 = 0x7fffffff;
+    for (int ct = pipe.unit_first(u); ct < pipe.unit_end(u); ++ct) {
+      float yt[wg::kBN / 4];        // in flight while the tensor cores run
+      wg::col_terms<kMetricL2>(yt, ct * wg::kBN, n, yn);
+      pipe.cross(d);
+      wg::fold_l2_tile(d, yt, ct * wg::kBN, n, xt0, xt1, bv0, bi0, bv1, bi1);
+    }
+    wg::quad_argmin(bv0, bi0, bv1, bi1);
+    if ((threadIdx.x & 3) == 0) {
+      const int64_t base = static_cast<int64_t>(pipe.unit_split(u)) * m;
+      if (r0 < m) {
+        part_v[base + r0] = bv0;
+        part_i[base + r0] = bi0;
+      }
+      if (r1 < m) {
+        part_v[base + r1] = bv1;
+        part_i[base + r1] = bi1;
+      }
+    }
+  }
+  pipe.drain();
+}
 
 template <int TIER>
 __global__ void __launch_bounds__(THREADS)
@@ -82,16 +133,40 @@ static void launch_split(dim3 grid, cudaStream_t st, const void* x0,
       x0, x1, xn, ldx, y0, y1, yn, ldy, m, n, k, tps, part_v, part_i);
 }
 
+template <int HALVES>
+static cudaError_t launch_wgmma(int grid, cudaStream_t st, const void* x0,
+                                const void* x1, const float* xn, int64_t ldx,
+                                const void* y0, const void* y1,
+                                const float* yn, int64_t ldy, int m, int n,
+                                int k, int tps, float* part_v, int* part_i) {
+  auto kern = minonly_wgmma<HALVES>;
+  constexpr int smem = wg::Layout<HALVES>::kRingBytes + 1024;  // + alignment
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, wg::kThreads, smem, st>>>(
+      static_cast<const uint16_t*>(x0), static_cast<const uint16_t*>(x1), xn,
+      ldx, static_cast<const uint16_t*>(y0),
+      static_cast<const uint16_t*>(y1), yn, ldy, m, n, k, tps, part_v,
+      part_i);
+  return cudaSuccess;
+}
+
 }  // namespace raft_port
 
-// Operands as in common.cuh (metric l2); part_v/part_i: f32/int32 scratch
+// Operands as in common.cuh (metric l2) at tier 'highest' (2); at tiers
+// 'default' (0) and 'high' (1) as in wgmma_tile.cuh: bf16 rows (at 'high'
+// the hi and lo halves), k, ldx and ldy multiples of 8, 16-byte aligned
+// bases, zeros in the padded depth. part_v/part_i: f32/int32 scratch
 // [splits][m]; splits must equal ceil(n_tiles / ceil(n_tiles / splits)) so
-// that no split is empty. Returns the CUDA error of the launches.
+// that no split is empty. grid: the persistent blocks of the wgmma split
+// walk (not read at 'highest', whose grid is query tiles x splits).
+// Returns the CUDA error of the launches.
 extern "C" int raft_minonly(int tier, const void* x0, const void* x1,
                             const float* xn, int64_t ldx, const void* y0,
                             const void* y1, const float* yn, int64_t ldy,
-                            int m, int n, int k, int splits, void* part_v,
-                            void* part_i, float* val, int* idx,
+                            int m, int n, int k, int splits, int grid,
+                            void* part_v, void* part_i, float* val, int* idx,
                             void* stream) {
   using namespace raft_port;
   const int n_tiles = (n + BN - 1) / BN;
@@ -101,20 +176,27 @@ extern "C" int raft_minonly(int tier, const void* x0, const void* x1,
   const int tps = (n_tiles + splits - 1) / splits;
   if ((n_tiles + tps - 1) / tps != splits)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((m + BM - 1) / BM, splits);
+  const int64_t tiles = static_cast<int64_t>((m + BM - 1) / BM) * n_tiles;
+  if (tier != kTierHighest &&
+      (grid < 1 ||
+       !wg::operands_ok(tier == kTierHigh, k, ldx, ldy, x0, x1, y0, y1) ||
+       2 * tiles >= (int64_t(1) << 31)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pv = static_cast<float*>(part_v);
   int* pi = static_cast<int*>(part_i);
+  cudaError_t err = cudaSuccess;
   if (tier == kTierDefault)
-    launch_split<kTierDefault>(grid, st, x0, x1, xn, ldx, y0, y1, yn, ldy, m,
-                               n, k, tps, pv, pi);
+    err = launch_wgmma<1>(grid, st, x0, x1, xn, ldx, y0, y1, yn, ldy, m, n,
+                          k, tps, pv, pi);
   else if (tier == kTierHigh)
-    launch_split<kTierHigh>(grid, st, x0, x1, xn, ldx, y0, y1, yn, ldy, m, n,
-                            k, tps, pv, pi);
+    err = launch_wgmma<2>(grid, st, x0, x1, xn, ldx, y0, y1, yn, ldy, m, n,
+                          k, tps, pv, pi);
   else
-    launch_split<kTierHighest>(grid, st, x0, x1, xn, ldx, y0, y1, yn, ldy, m,
-                               n, k, tps, pv, pi);
-  cudaError_t err = cudaGetLastError();
+    launch_split<kTierHighest>(dim3((m + BM - 1) / BM, splits), st, x0, x1,
+                               xn, ldx, y0, y1, yn, ldy, m, n, k, tps, pv,
+                               pi);
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   minonly_merge_kernel<<<(m + 255) / 256, 256, 0, st>>>(pv, pi, splits, m,
                                                        val, idx);

@@ -199,10 +199,6 @@ static void launch_fma(int metric, dim3 grid, cudaStream_t st,
   }
 }
 
-static bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 }  // namespace raft_port
 
 // Tiers 'default' (0) and 'high' (1) take bf16 rows (x0/y0; at 'high' also
@@ -229,8 +225,7 @@ extern "C" int raft_pairwise_tile(int tier, int metric, const void* x0,
     return static_cast<int>(cudaGetLastError());
   }
   const bool high = tier == kTierHigh;
-  if (k % 8 || ldx % 8 || ldy % 8 || !aligned16(x0) || !aligned16(y0) ||
-      (high && (!aligned16(x1) || !aligned16(y1))) ||
+  if (!wg::operands_ok(high, k, ldx, ldy, x0, x1, y0, y1) ||
       static_cast<int64_t>((m + wg::kBM - 1) / wg::kBM) *
               ((n + wg::kBN - 1) / wg::kBN) >= (int64_t(1) << 31))
     return static_cast<int>(cudaErrorInvalidValue);

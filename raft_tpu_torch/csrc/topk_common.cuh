@@ -76,33 +76,49 @@ __device__ __forceinline__ int lower_bound(const uint64_t* a, int len,
   return lo;
 }
 
-// Merge a batch of c candidates (distinct keys, below kEmpty, none already
-// in the list) into the sorted list best[0, k), keeping the k smallest.
-// Each key's place in the merged order is its rank among the batch plus
-// its rank in the old list, so every slot has exactly one writer and the
-// result is the same whatever order the batch came in. `best` may be in
-// global or shared memory; `tmp` (k keys) and `cand` are shared. One warp
-// calls it; returns the new k-th key, the bound of the next batch.
+// Merge a batch of c <= kMergeBatch candidates (distinct keys, below
+// kEmpty, none already in the list) into the sorted list best[0, k),
+// keeping the k smallest. The batch is first sorted in place: a key goes to
+// its rank, the number of smaller keys in the batch. A key's place in the
+// merged order is then its rank in its own sorted run plus the number of
+// smaller keys in the other, found by binary search, so every slot has
+// exactly one writer and the result is the same whatever order the batch
+// came in. `best` may be in global or shared memory; `tmp` (k keys) and
+// `cand` are shared, and cand comes back sorted. One warp calls it; it
+// starts with a __syncwarp, so the lanes' earlier writes to cand and best
+// are visible to every lane. Returns the new k-th key, the bound of the
+// next batch.
+constexpr int kMergeBatch = 4 * kWarp;
+
 __device__ __forceinline__ uint64_t warp_merge(uint64_t* best, uint64_t* tmp,
-                                               const uint64_t* cand, int c,
-                                               int k) {
+                                               uint64_t* cand, int c, int k) {
+  constexpr int kPer = kMergeBatch / kWarp;
   const int lane = threadIdx.x & (kWarp - 1);
-  for (int e = lane; e < k; e += kWarp) tmp[e] = best[e];
   __syncwarp();
-  for (int i = lane; i < c; i += kWarp) {
-    const uint64_t key = cand[i];
-    int r = lower_bound(tmp, k, key);
-    for (int j = 0; j < c; ++j) r += cand[j] < key;
-    if (r < k) best[r] = key;
+  for (int e = lane; e < k; e += kWarp) tmp[e] = best[e];
+  uint64_t key[kPer];
+  int rank[kPer];
+#pragma unroll
+  for (int t = 0; t < kPer; ++t) {
+    const int i = lane + t * kWarp;
+    key[t] = i < c ? cand[i] : kEmpty;
+    rank[t] = 0;
+    if (i < c)
+      for (int j = 0; j < c; ++j) rank[t] += cand[j] < key[t];
   }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < kPer; ++t) {
+    if (lane + t * kWarp >= c) break;
+    cand[rank[t]] = key[t];
+    const int r = rank[t] + lower_bound(tmp, k, key[t]);
+    if (r < k) best[r] = key[t];
+  }
+  __syncwarp();
   for (int e = lane; e < k; e += kWarp) {
-    const uint64_t key = tmp[e];
-    int r = e;
-    if (key != kEmpty)
-      for (int j = 0; j < c && r < k; ++j) r += cand[j] < key;
-    else
-      r += c;
-    if (r < k) best[r] = key;
+    const uint64_t old = tmp[e];
+    const int r = e + lower_bound(cand, c, old);
+    if (r < k) best[r] = old;
   }
   __syncwarp();
   return best[k - 1];

@@ -30,6 +30,7 @@ constexpr int kInsWarps = 8;
 constexpr int kInsThreads = kInsWarps * kWarp;
 constexpr int kInsPer = 4;                        // columns a lane loads
 constexpr int kInsBatch = kInsPer * kWarp;        // columns a warp batch
+static_assert(kInsBatch <= kMergeBatch, "warp_merge takes a whole batch");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -71,7 +72,6 @@ __global__ void __launch_bounds__(kInsThreads)
       }
       count = warp_append(cand, count, take, key);
     }
-    __syncwarp();
     if (count) bound = warp_merge(best, tmp, cand, count, k);
   }
   __syncthreads();

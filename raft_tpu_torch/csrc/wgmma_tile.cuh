@@ -1,9 +1,9 @@
 // Tensor-core cross-product tile of the port's contraction kernels on
 // Hopper (sm_90a): x·yᵀ for a 128 x 128 output tile, bf16 operands, f32
-// accumulators, on wgmma.mma_async. pairwise_tile.cu runs its tiers
-// 'default' and 'high' on it; common.cuh's CUDA-core tile serves 'highest'
-// (there is no exact f32 tensor-core product) and the other contraction
-// kernels.
+// accumulators, on wgmma.mma_async. pairwise_tile.cu, fused_lloyd.cu,
+// fused_topk.cu and minonly.cu run their tiers 'default' and 'high' on it;
+// common.cuh's CUDA-core tile serves 'highest' (there is no exact f32
+// tensor-core product) and fused_argmin.cu.
 //
 // Operands: bf16 rows, x [m, >= k] and y [n, >= k], row strides ldx and
 // ldy elements. k, ldx and ldy are multiples of 8 and the bases 16-byte
@@ -17,11 +17,16 @@
 //
 // Pipeline: one block of two warpgroups a streaming multiprocessor walks
 // the output tiles (row tile, column tile; column fastest) persistently,
-// in one of two walks: the flat walk (block b takes the flattened tiles
-// b, b + G, b + 2G, ...; pairwise_tile.cu) or the row-owning walk (block b
+// in one of three walks: the flat walk (block b takes the flattened tiles
+// b, b + G, b + 2G, ...; pairwise_tile.cu), the row-owning walk (block b
 // takes row tiles b, b + G, ... and inside each all its column tiles in
 // order, so that a row's running reduction stays in registers;
-// fused_lloyd.cu).
+// fused_lloyd.cu) or the split walk (the column tiles cut into splits of
+// tps tiles, the last one shorter; block b takes the work units (row
+// tile, split) b, b + G, ..., unit u being row tile u / splits and split
+// u % splits, and inside each the split's column tiles in order;
+// fused_topk.cu and minonly.cu, whose few row tiles alone would leave
+// most multiprocessors idle).
 // Each tile's depth goes in stages of 64 (one 128-byte row of bf16 a tile
 // row), two stages in a ring, filled by cp.async (zero-fill past m, n and
 // k) into the 128-byte-swizzled layout wgmma reads: row r of a stage at
@@ -31,10 +36,18 @@
 // a stage). A stage is refilled, with the next stage of the walk (this
 // tile's or the next tile's), as soon as both warpgroups are done with it,
 // so the next tile's operands arrive while the caller runs its epilogue.
+//
+// Epilogue helpers: col_terms (a tile's column norms, loaded before its
+// product), the L2 first-min argmin on the accumulator fragment
+// (fold_min and quad_argmin, which fused_lloyd.cu and minonly.cu share,
+// and minonly.cu's branch-free tile fold fold_l2_tile), and the host
+// check of the operand contract (operands_ok).
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace raft_port {
 namespace wg {
@@ -174,13 +187,14 @@ __device__ __forceinline__ int frag_col(int i) {
   return (i >> 2) * 8 + 2 * (threadIdx.x & 3) + (i & 1);
 }
 
-enum Walk { kFlatWalk = 0, kRowWalk = 1 };
+enum Walk { kFlatWalk = 0, kRowWalk = 1, kSplitWalk = 2 };
 
 // The persistent walk over output tiles with its two-stage operand ring.
 // Every thread of the block constructs it and calls cross() once a tile,
 // in the order of first() and next(); the block must have kThreads
 // threads and Layout<HALVES>::kRingBytes of 1024-byte aligned shared
-// memory at ring. The row-owning walk needs 2 x tiles < 2^31.
+// memory at ring. The row-owning and split walks need 2 x tiles < 2^31;
+// the split walk takes tps, the column tiles a split (>= 1).
 template <int HALVES, int WALK = kFlatWalk>
 struct Pipe {
   const uint16_t *x0, *x1, *y0, *y1;
@@ -188,16 +202,20 @@ struct Pipe {
   int m, n, k;
   uint32_t ring;
   int tiles_n, tiles, nk;
+  int tps, splits, units;                  // the split walk's work units
   int ld_tile, ld_kc, stage;
 
   __device__ Pipe(const uint16_t* x0_, const uint16_t* x1_, int64_t ldx_,
                   const uint16_t* y0_, const uint16_t* y1_, int64_t ldy_,
-                  int m_, int n_, int k_, void* ring_)
+                  int m_, int n_, int k_, void* ring_, int tps_ = 1)
       : x0(x0_), x1(x1_), y0(y0_), y1(y1_), ldx(ldx_), ldy(ldy_), m(m_),
         n(n_), k(k_), ring(smem_u32(ring_)),
         tiles_n((n_ + kBN - 1) / kBN),
         tiles(((m_ + kBM - 1) / kBM) * ((n_ + kBN - 1) / kBN)),
-        nk((k_ + kBK - 1) / kBK), ld_tile(first()), ld_kc(0), stage(0) {
+        nk((k_ + kBK - 1) / kBK), tps(tps_),
+        splits((tiles_n + tps_ - 1) / tps_),
+        units(((m_ + kBM - 1) / kBM) * splits), ld_tile(first()), ld_kc(0),
+        stage(0) {
     issue(0);
     issue(1);
   }
@@ -205,12 +223,33 @@ struct Pipe {
   __device__ int row0(int tile) const { return (tile / tiles_n) * kBM; }
   __device__ int col0(int tile) const { return (tile % tiles_n) * kBN; }
 
+  // split walk: unit u's row tile's first row, split and column tiles
+  // [first, end)
+  __device__ int unit_row0(int u) const { return (u / splits) * kBM; }
+  __device__ int unit_split(int u) const { return u % splits; }
+  __device__ int unit_first(int u) const { return (u % splits) * tps; }
+  __device__ int unit_end(int u) const {
+    return min(tiles_n, unit_first(u) + tps);
+  }
+  // the first tile of unit u, or tiles past the last unit
+  __device__ int unit_tile(int u) const {
+    return u < units ? (u / splits) * tiles_n + unit_first(u) : tiles;
+  }
+
   // this block's first tile, and the tile after `tile`, of the walk
   __device__ int first() const {
+    if constexpr (WALK == kSplitWalk)
+      return unit_tile(static_cast<int>(blockIdx.x));
     return WALK == kRowWalk ? static_cast<int>(blockIdx.x) * tiles_n
                             : static_cast<int>(blockIdx.x);
   }
   __device__ int next(int tile) const {
+    if constexpr (WALK == kSplitWalk) {
+      const int ct = tile % tiles_n;
+      if (ct + 1 < tiles_n && (ct + 1) % tps != 0) return tile + 1;
+      return unit_tile((tile / tiles_n) * splits + ct / tps +
+                       static_cast<int>(gridDim.x));
+    }
     if constexpr (WALK == kRowWalk)
       return tile % tiles_n == tiles_n - 1
                  ? tile + 1 + (static_cast<int>(gridDim.x) - 1) * tiles_n
@@ -273,6 +312,83 @@ struct Pipe {
 
   __device__ void drain() const { cp_async_wait<0>(); }
 };
+
+// The norm terms (common.cuh's norm_term) of this thread's 32 fragment
+// columns of the tile at col0, yt[2 j + e] for column col0 + frag_col(4 j)
+// + e, 0 past n. A caller may load them before cross(): they do not depend
+// on the product.
+template <int METRIC>
+__device__ __forceinline__ void col_terms(float (&yt)[kBN / 4], int col0,
+                                          int n, const float* yn) {
+#pragma unroll
+  for (int b = 0; b < kBN / 4; ++b) {
+    const int c = col0 + frag_col(4 * (b / 2)) + b % 2;
+    yt[b] = c < n ? norm_term<METRIC>(yn, c) : 0.f;
+  }
+}
+
+// The first-min fold under common.cuh's strict order (the smaller value,
+// then the smaller column; a NaN never wins): (bv, bi) takes (v, c) when
+// it comes first.
+__device__ __forceinline__ void fold_min(float v, int c, float& bv,
+                                         int& bi) {
+  if (before<true>(v, c, bv, bi)) {
+    bv = v;
+    bi = c;
+  }
+}
+
+// The L2 argmin epilogue on the accumulator fragment of the tile at col0:
+// fold the squared L2 distance of each of this thread's 32 columns into
+// the running (min, argmin) of its rows frag_row(0) (xt0, bv0, bi0) and
+// frag_row(0) + 8 (xt1, bv1, bi1). yt comes from col_terms<kMetricL2>; a
+// column past n folds as a NaN, which never wins, rather than being
+// branched around.
+__device__ __forceinline__ void fold_l2_tile(const float (&d)[kAcc],
+                                             const float (&yt)[kBN / 4],
+                                             int col0, int n, float xt0,
+                                             float xt1, float& bv0, int& bi0,
+                                             float& bv1, int& bi1) {
+  const float nan = __int_as_float(0x7fc00000);
+#pragma unroll
+  for (int b = 0; b < kBN / 4; ++b) {
+    const int j = b / 2, e = b % 2;
+    const int c = col0 + frag_col(4 * j) + e;
+    fold_min(c < n ? metric_value<kMetricL2>(d[4 * j + e], xt0, yt[b]) : nan,
+             c, bv0, bi0);
+    fold_min(c < n ? metric_value<kMetricL2>(d[4 * j + 2 + e], xt1, yt[b])
+                   : nan, c, bv1, bi1);
+  }
+}
+
+// The four lanes of a quad hold the same two rows: combine their running
+// (min, argmin) by two shuffles, after which every lane holds the rows'.
+__device__ __forceinline__ void quad_argmin(float& bv0, int& bi0, float& bv1,
+                                            int& bi1) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    const float v0 = __shfl_xor_sync(0xffffffffu, bv0, off);
+    const int i0 = __shfl_xor_sync(0xffffffffu, bi0, off);
+    const float v1 = __shfl_xor_sync(0xffffffffu, bv1, off);
+    const int i1 = __shfl_xor_sync(0xffffffffu, bi1, off);
+    fold_min(v0, i0, bv0, bi0);
+    fold_min(v1, i1, bv1, bi1);
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Host check of the operand contract above: k, ldx and ldy multiples of
+// 8, the bases 16-byte aligned, and at tier 'high' (high) the lo halves'
+// too.
+inline bool operands_ok(bool high, int64_t k, int64_t ldx, int64_t ldy,
+                        const void* x0, const void* x1, const void* y0,
+                        const void* y1) {
+  return k % 8 == 0 && ldx % 8 == 0 && ldy % 8 == 0 && aligned16(x0) &&
+         aligned16(y0) && (!high || (aligned16(x1) && aligned16(y1)));
+}
 
 }  // namespace wg
 }  // namespace raft_port

@@ -88,10 +88,10 @@ REGISTRY: Dict[str, KernelSpec] = {
             name="fused_topk",
             source="csrc/fused_topk.cu",
             symbol="raft_fused_topk",
-            # tier, metric, operands..., m, n, kd, k, splits, lists,
+            # tier, metric, operands..., m, n, kd, k, splits, grid, lists,
             # out_v, out_i, stream
-            argtypes=(_I, _I) + _OPERANDS + (_I, _I, _I, _I, _I, _P, _P, _P,
-                                             _P),
+            argtypes=(_I, _I) + _OPERANDS + (_I, _I, _I, _I, _I, _I, _P, _P,
+                                             _P, _P),
             plain="raft_tpu_torch.neighbors.fused_topk._fused_topk_plain",
             ports="raft_tpu/neighbors/fused_topk.py:_topk_kernel, "
                   "_topk_kernel_split",
@@ -189,10 +189,10 @@ REGISTRY: Dict[str, KernelSpec] = {
             name="minonly",
             source="csrc/minonly.cu",
             symbol="raft_minonly",
-            # tier, operands..., m, n, k, splits, part_v, part_i, val,
-            # idx, stream
-            argtypes=(_I,) + _OPERANDS + (_I, _I, _I, _I, _P, _P, _P, _P,
-                                          _P),
+            # tier, operands..., m, n, k, splits, grid, part_v, part_i,
+            # val, idx, stream
+            argtypes=(_I,) + _OPERANDS + (_I, _I, _I, _I, _I, _P, _P, _P,
+                                          _P, _P),
             plain="raft_tpu_torch.neighbors.fused_topk._minonly_plain",
             ports="raft_tpu/neighbors/fused_topk.py:_minonly_kernel, "
                   "_minonly_kernel_split",

@@ -5,9 +5,12 @@ CUDA kernel: ``csrc/fused_topk.cu`` (the reference's ``_topk_kernel`` /
 ``_topk_kernel_split``: a distance tile plus the bound-gated sorted
 insertion of ``epilogue.insert_drain``), beside its plain version
 :func:`_fused_topk_plain`. Operands follow the precision tier as in
-``linalg/contractions.py``. The result is each query's k smallest
-``(distance, column)`` pairs, best-first; a NaN or +inf distance never
-enters, and empty slots are ``(+inf, 0)``.
+``linalg/contractions.py``; :data:`ROUTE` names the tile at each tier.
+The result is each query's k smallest ``(distance, column)`` pairs,
+best-first; a NaN or +inf distance never enters, and empty slots are
+``(+inf, 0)``. The kernel cuts the database into splits
+(:func:`_split_plan`) and merges each row's split lists; the keys are
+exact, so no result depends on the split count.
 
 The reference's tune-only 1-NN floor probe, :func:`_minonly_probe`, is
 here too: the same distance tile and grid with a running min in place of
@@ -17,6 +20,10 @@ selection's price. It is not a user API.
 """
 
 from __future__ import annotations
+
+import functools
+from collections import namedtuple
+from typing import Optional
 
 import torch
 
@@ -28,12 +35,32 @@ from raft_tpu_torch.matrix.epilogue import (MAX_K, insert_drain_plain,
 from raft_tpu_torch.util.math import cdiv, round_up_to_multiple
 from raft_tpu_torch.util.precision import current_mode, with_matmul_precision
 
-# Blocks the kernel aims for (query tiles x database splits): eight waves
-# of one block per SM on a 132-SM H100 (at tier 'high' a block holds 179
-# registers a thread, so one fits an SM), fixed by the shapes and never
-# by the card. The result does not depend on the split count.
+# Cross-product tile of csrc/fused_topk.cu and csrc/minonly.cu at each
+# tier: the tensor-core tile of csrc/wgmma_tile.cuh in its split walk, or
+# csrc/common.cuh's CUDA-core FMA tile (no exact f32 tensor-core product
+# exists for 'highest').
+ROUTE = {"default": "wgmma", "high": "wgmma", "highest": "fma"}
+
+# The wgmma route's plan (:func:`_split_plan`): one persistent block a
+# multiprocessor of the card over work units (128-row query tile,
+# database split). Each split refills every row's list, about
+# k (1 + ln(cols / k)) insertions a row, so the plan takes the fewest
+# splits whose busiest block walks at most PLAN_SLACK more column tiles
+# than under the best split count. A row's split lists are merged in
+# MERGE_BYTES of shared memory.
+PLAN_SLACK = 1 / 16
+MERGE_BYTES = 200 * 1024
+
+# The FMA route's grid ('highest'): query tiles x database splits, aiming
+# at TARGET_BLOCKS blocks, at most MAX_SPLITS splits; fixed by the shapes
+# and never by the card. On a 132-SM H100 that is four waves of two
+# blocks an SM: the kernel holds 127 registers a thread and 79-92 KB of
+# shared memory at k = 64-256, so two blocks fit an SM.
 TARGET_BLOCKS = 1056
 MAX_SPLITS = 64
+
+SplitPlan = namedtuple("SplitPlan", "splits tiles_per_split units grid "
+                       "scratch_bytes")
 
 
 def supports(k: int) -> bool:
@@ -55,18 +82,75 @@ def _fused_topk_plain(tier: str, metric: str, xs, ys, m: int, n: int,
                                                  kd), k)
 
 
-def _splits(m: int, n: int) -> int:
-    """Database splits of the kernel's grid; no split is empty."""
+def _whole_splits(n_tiles: int, splits: int):
+    """``(splits, tiles a split)`` with ``splits`` cut down until no
+    split is empty (the last may be shorter)."""
+    tps = cdiv(n_tiles, splits)
+    return cdiv(n_tiles, tps), tps
+
+
+@functools.lru_cache(maxsize=256)
+def _split_plan(m: int, n: int, k: int, sms: int,
+                splits: Optional[int] = None) -> SplitPlan:
+    """The wgmma route's plan for m queries, n database rows and k
+    results (1 for the probe) on a card of ``sms`` multiprocessors: a
+    pure function of its arguments.
+
+    - ``splits``, ``tiles_per_split``: the database's 128-column tiles
+      cut into splits, none empty; ``splits`` given (a test's choice) or
+      the fewest whose busiest block walks at most PLAN_SLACK more tiles
+      than the best count's, among 1 .. sms;
+    - ``units``: query tiles x splits, the walk's work units; ``grid``:
+      its persistent blocks, one a multiprocessor, at most one a unit;
+    - ``scratch_bytes``: the split lists, [splits][m][k] 8-byte keys."""
+    if min(m, n, k, sms) < 1 or (splits is not None and splits < 1):
+        raise ValueError(f"bad split plan arguments m={m} n={n} k={k} "
+                         f"sms={sms} splits={splits}")
+    row_tiles, n_tiles = cdiv(m, tc.TILE_M), cdiv(n, tc.TILE_N)
+    most = min(n_tiles, MERGE_BYTES // (8 * k))
+
+    def walk(s):
+        s, tps = _whole_splits(n_tiles, s)
+        return cdiv(row_tiles * s, sms) * tps
+
+    if splits is None:
+        tried = range(1, min(most, sms) + 1)
+        best = min(walk(s) for s in tried)
+        splits = next(s for s in tried if walk(s) <= best * (1 + PLAN_SLACK))
+    splits, tps = _whole_splits(n_tiles, min(splits, most))
+    units = row_tiles * splits
+    return SplitPlan(splits, tps, units, min(sms, units), 8 * splits * m * k)
+
+
+def _fma_splits(m: int, n: int, splits: Optional[int] = None) -> int:
+    """Database splits of the FMA route's grid; no split is empty."""
     n_tiles = cdiv(n, tc.TILE_N)
-    splits = max(1, min(n_tiles, cdiv(TARGET_BLOCKS, cdiv(m, tc.TILE_M)),
-                        MAX_SPLITS))
-    return cdiv(n_tiles, cdiv(n_tiles, splits))
+    if splits is None:
+        splits = max(1, min(n_tiles, cdiv(TARGET_BLOCKS, cdiv(m, tc.TILE_M)),
+                            MAX_SPLITS))
+    return _whole_splits(n_tiles, min(splits, n_tiles))[0]
+
+
+def _launch_plan(tier: str, xs, ys, m: int, n: int, kd: int, k: int,
+                 splits: Optional[int]):
+    """``(xs, ys, kd, splits, grid)`` of a launch of fused_topk.cu or
+    minonly.cu on the route :data:`ROUTE` names: the wgmma route's bf16
+    operands (:func:`~raft_tpu_torch.linalg.contractions._wgmma_operands`)
+    and split plan, or the FMA route's operands and splits (grid 0: its
+    grid is query tiles x splits)."""
+    if ROUTE[tier] == "fma":
+        return xs, ys, kd, _fma_splits(m, n, splits), 0
+    sms = torch.cuda.get_device_properties(xs.v0.device).multi_processor_count
+    plan = _split_plan(m, n, k, sms, splits)
+    xs, ys, kd = tc._wgmma_operands(tier, xs, ys, m, n, kd)
+    return xs, ys, kd, plan.splits, plan.grid
 
 
 def _fused_topk(tier: str, metric: str, xs, ys, m: int, n: int, kd: int,
-                k: int):
+                k: int, splits: Optional[int] = None):
     """``(vals f32 [m, k], idx int32 [m, k])``: csrc/fused_topk.cu on
-    CUDA, the plain version on the CPU."""
+    CUDA, the plain version on the CPU. ``splits``: a test's database
+    split count (default: the route's plan); no result depends on it."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"need 1 <= k <= {MAX_K}, got {k}")
     if tc._on_cpu(xs, ys):
@@ -74,13 +158,14 @@ def _fused_topk(tier: str, metric: str, xs, ys, m: int, n: int, kd: int,
     tc._check_side(xs, tier, m, kd, "x")
     tc._check_side(ys, tier, n, kd, "y")
     dev = xs.v0.device
-    splits = _splits(m, n)
+    xs, ys, kd, splits, grid = _launch_plan(tier, xs, ys, m, n, kd, k,
+                                            splits)
     lists = torch.empty((splits, m, k), dtype=torch.int64, device=dev)
     vals = torch.empty((m, k), dtype=torch.float32, device=dev)
     idx = torch.empty((m, k), dtype=torch.int32, device=dev)
     kernels.launch("fused_topk", dev, tc._TIER_CODE[tier],
                    tc._METRIC_CODE[metric], *tc._operand_args(xs, ys), m, n,
-                   kd, k, splits, lists.data_ptr(), vals.data_ptr(),
+                   kd, k, splits, grid, lists.data_ptr(), vals.data_ptr(),
                    idx.data_ptr())
     return vals, idx
 
@@ -133,21 +218,24 @@ def _minonly_plain(tier: str, xs, ys, m: int, n: int, kd: int,
     return state[0][:, 0], state[1][:, 0]
 
 
-def _minonly(tier: str, xs, ys, m: int, n: int, kd: int, tn: int = 1024):
+def _minonly(tier: str, xs, ys, m: int, n: int, kd: int, tn: int = 1024,
+             splits: Optional[int] = None):
     """``(vals f32 [m], idx int32 [m])``: csrc/minonly.cu on CUDA, on
-    fused_topk.cu's grid; the plain version on the CPU."""
+    fused_topk.cu's route and plan (k = 1); the plain version on the
+    CPU. ``splits`` as :func:`_fused_topk`'s."""
     if tc._on_cpu(xs, ys):
         return _minonly_plain(tier, xs, ys, m, n, kd, tn)
     tc._check_side(xs, tier, m, kd, "x")
     tc._check_side(ys, tier, n, kd, "y")
     dev = xs.v0.device
-    splits = _splits(m, n)
+    xs, ys, kd, splits, grid = _launch_plan(tier, xs, ys, m, n, kd, 1,
+                                            splits)
     part_v = torch.empty((splits, m), dtype=torch.float32, device=dev)
     part_i = torch.empty((splits, m), dtype=torch.int32, device=dev)
     vals = torch.empty((m,), dtype=torch.float32, device=dev)
     idx = torch.empty((m,), dtype=torch.int32, device=dev)
     kernels.launch("minonly", dev, tc._TIER_CODE[tier],
-                   *tc._operand_args(xs, ys), m, n, kd, splits,
+                   *tc._operand_args(xs, ys), m, n, kd, splits, grid,
                    part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
                    idx.data_ptr())
     return vals, idx

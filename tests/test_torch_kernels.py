@@ -231,29 +231,62 @@ def _counted(name, fn):
     return out
 
 
+def _tied_data(g, card, m, n, kd, edge):
+    """Normal rows with ties across the split edge at column ``edge``
+    (query 0 nearest to columns 3 and edge, query 2 to edge - 1 and
+    edge + 1: the smaller column first), a NaN query (row 1) and a NaN
+    column (40)."""
+    x = torch.randn(m, kd, generator=g, device=card)
+    y = torch.randn(n, kd, generator=g, device=card)
+    y[edge] = y[3]
+    if edge + 1 < n:
+        y[edge + 1] = y[edge - 1]
+    x[0] = y[3] + 1e-3
+    x[2] = y[edge - 1]
+    x[1] = float("nan")
+    y[40] = float("nan")
+    return x, y
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ["l2", "cosine", "inner"])
 @pytest.mark.parametrize("tier", TIERS)
 def test_fused_topk_matches_plain_on_card(card, tier, metric):
-    m, n, kd, k = 300, 1100, 37, 50               # ragged, several splits
+    """Ragged m, n and depth (not multiples of 128 or 8), k in {1, 50,
+    64, 255, 256} and n < k, ties across a split edge, a NaN row and a
+    NaN column: indices equal to the plain version's but at near-ties,
+    values within 1e-5 of the scale, empty slots (+inf, 0); two runs and
+    two explicit split counts bitwise equal to the planned call."""
     g = torch.Generator(device=card).manual_seed(13)
-    x = torch.randn(m, kd, generator=g, device=card)
-    y = torch.randn(n, kd, generator=g, device=card)
-    y[900] = y[3]                                 # tie: column 3 first
-    x[1] = float("nan")                           # no candidate at all
-    xs, ys = tc._side(x, tier), tc._side(y, tier)
-    got = _counted("fused_topk", lambda: tft._fused_topk(
-        tier, metric, xs, ys, m, n, kd, k))
-    again = tft._fused_topk(tier, metric, xs, ys, m, n, kd, k)
-    want = tft._fused_topk_plain(tier, metric, xs, ys, m, n, kd, k)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
-    assert got[1][1].tolist() == [0] * k
-    same = got[1] == want[1]
-    assert float(same.float().mean()) >= 0.99
-    scale = float(((x[~x.isnan().any(1)] ** 2).sum(1).max()
-                   + (y * y).sum(1).max()))
-    fin = torch.isfinite(want[0])
-    assert float((got[0] - want[0]).abs()[fin].max()) <= 1e-5 * scale
+    for m, n, kd, edge in ((300, 1100, 37, 640), (129, 200, 45, 128)):
+        x, y = _tied_data(g, card, m, n, kd, edge)
+        xs, ys = tc._side(x, tier), tc._side(y, tier)
+        n_tiles = -(-n // tc.TILE_N)
+        for k in (1, 50, 64, 255, 256):
+            got = _counted("fused_topk", lambda: tft._fused_topk(
+                tier, metric, xs, ys, m, n, kd, k))
+            for splits in (None, 2, n_tiles):
+                again = tft._fused_topk(tier, metric, xs, ys, m, n, kd, k,
+                                        splits)
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                    (m, k, splits)
+            want = tft._fused_topk_plain(tier, metric, xs, ys, m, n, kd, k)
+            assert got[1][1].tolist() == [0] * k
+            fin = torch.isfinite(want[0])
+            assert torch.equal(fin, torch.isfinite(got[0]))
+            assert not bool(got[1][~fin].any())
+            same = got[1] == want[1]
+            assert float(same.float().mean()) >= 0.99, (m, k)
+            scale = float(((x[~x.isnan().any(1)] ** 2).sum(1).max()
+                           + (y[~y.isnan().any(1)] ** 2).sum(1).max()))
+            if metric == "cosine":
+                scale = 1.0
+            err = (got[0] - want[0]).abs()[fin]
+            assert float(err.max()) <= 1e-5 * scale, (m, k)
+            if metric == "l2" and k > 1:
+                assert got[1][0, :2].tolist() == [3, edge]
+                if edge + 1 < n:
+                    assert got[1][2, :2].tolist() == [edge - 1, edge + 1]
 
 
 @pytest.mark.cuda
@@ -517,25 +550,37 @@ def test_mst_on_card_equals_mst_on_the_cpu(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("tier", TIERS)
 def test_minonly_matches_plain_on_card(card, tier):
-    m, n, kd = 300, 5000, 37                       # ragged, several splits
+    """Bitwise equal to the plain version on integer data (every sum
+    exact), indices equal but at near-ties otherwise; ragged m, n and
+    depth, a tie across a split edge (the smaller column wins), a NaN
+    row ((+inf, 0)) and a NaN column; two runs and two explicit split
+    counts bitwise equal to the planned call."""
     g = torch.Generator(device=card).manual_seed(20)
-    for integer in (True, False):
-        x = torch.randn(m, kd, generator=g, device=card)
-        y = torch.randn(n, kd, generator=g, device=card)
-        if integer:
-            x, y = torch.round(2 * x), torch.round(2 * y)
-        y[4000] = y[3]                             # tie: column 3 first
-        x[1] = y[3]
-        xs, ys = tc._side(x, tier), tc._side(y, tier)
-        got = _counted("minonly", lambda: tft._minonly(tier, xs, ys, m, n,
-                                                       kd))
-        want = tft._minonly_plain(tier, xs, ys, m, n, kd)
-        assert int(got[1][1]) == 3
-        if integer:                                # every sum exact
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
-                                                                 want[1])
-            continue
-        scale = float(((x * x).sum(1).max() + (y * y).sum(1).max()))
-        same = got[1] == want[1]
-        assert float(same.float().mean()) >= 0.99
-        assert float((got[0] - want[0]).abs().max()) <= 1e-5 * scale
+    for m, n, kd, edge in ((300, 5000, 37, 2560), (129, 200, 45, 128)):
+        n_tiles = -(-n // tc.TILE_N)
+        for integer in (True, False):
+            x, y = _tied_data(g, card, m, n, kd, edge)
+            if integer:
+                x, y = torch.round(2 * x), torch.round(2 * y)
+            x[0] = y[3]
+            xs, ys = tc._side(x, tier), tc._side(y, tier)
+            got = _counted("minonly", lambda: tft._minonly(tier, xs, ys, m,
+                                                           n, kd))
+            for splits in (None, 2, n_tiles):
+                again = tft._minonly(tier, xs, ys, m, n, kd, splits=splits)
+                assert all(torch.equal(a, b) for a, b in zip(got, again))
+            want = tft._minonly_plain(tier, xs, ys, m, n, kd)
+            assert int(got[1][0]) == 3
+            assert int(got[1][2]) == edge - 1
+            assert float(got[0][1]) == float("inf") and int(got[1][1]) == 0
+            if integer:                            # every sum exact
+                assert torch.equal(got[0], want[0]) and torch.equal(
+                    got[1], want[1])
+                continue
+            live = ~x.isnan().any(1)
+            scale = float(((x[live] ** 2).sum(1).max()
+                           + (y[~y.isnan().any(1)] ** 2).sum(1).max()))
+            same = got[1] == want[1]
+            assert float(same.float().mean()) >= 0.99
+            assert float((got[0] - want[0]).abs()[live].max()) <= \
+                1e-5 * scale
