@@ -24,7 +24,7 @@ just after:
   linf and canberra at k = 64 with 256 queries;
 - select_k: AUTO on 64 x 2^20 f32, k = 2048 (radix), and
   WARPSORT_FILTERED on 1024 x 65,536 f32, k = 64 (insertion), on
-  random and on descending rows;
+  random, descending and ascending rows;
 - the tune-only 1-NN probe at the kNN shape, beside the fused top-k at
   k = 1, 64 and 256 (the gap is the selection's share);
 - a k sweep at the kNN shape: the fused route against the radix route
@@ -46,14 +46,19 @@ It then holds every kernel against its plain version at the shapes
 those paths give it (the kNN radix route's 4096 x 32,768 chunk of
 distances and config 4's graph included) and times it there, with
 ``pairwise_tile``'s tile at each tier (wgmma at 'default' and 'high',
-the FMA tile at 'highest'), ``fused_topk`` at k = 64 and 256 at each
+the FMA tile at 'highest'), ``fused_argmin`` on its tile and walk at
+each tier (l2, cosine and inner at config 3's shape, the k-means||
+candidate shape, the kNN shape and the spectral partition's shape, with
+``kmeans_predict``'s time; its plan at those shapes on an
+``argmin_plan`` line, worked out, not measured),
+``fused_topk`` at k = 64 and 256 at each
 tier beside the time of its operands' preparation (the split into bf16
 halves, the wgmma route's bf16 rows) on the 2^20-row database, the
 count of HGMMA instructions in the built libraries of
-``pairwise_tile``, ``fused_lloyd``, ``fused_topk`` and ``minonly``
-(where the toolkit has ``cuobjdump``), the Lloyd pass split into its
-argmin and its sums
-by kernel name from a ``torch.profiler`` trace (every output bitwise
+``pairwise_tile``, ``fused_argmin``, ``fused_lloyd``, ``fused_topk`` and
+``minonly`` (where the toolkit has ``cuobjdump``), the Lloyd pass split
+into its argmin and its sums by kernel name from a ``torch.profiler``
+trace (every output bitwise
 equal on two argmin grids), its plan at BASELINE config 5's shape (not
 run), the fused top-k's split plan at the kNN shape (a ``topk_plan``
 line; worked out, not measured), a trace of k-means iterations (the card's busy time and idle
@@ -65,6 +70,14 @@ output (compiler logs, all numbers) goes to
 ``chiprun_out/chip_smoke.json``. Any failed check raises, and the script
 exits non-zero; without CUDA it exits non-zero before printing any
 result.
+
+    python3 chip_smoke.py --fingerprint ROOT
+
+hashes the outputs of ``pairwise_tile``, ``fused_lloyd``, ``fused_topk``,
+``minonly`` and ``topk_insert`` on seeded inputs, and times them at the
+main paths' shapes, from the ``raft_tpu_torch`` package under ROOT: run
+on this checkout and on another commit's package in turns, it shows
+whether a change kept those kernels bit for bit, and their times.
 """
 
 import json
@@ -73,6 +86,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SEED = 20261016
 MAIN_M, MAIN_K, MAIN_N, MAIN_ITERS = 1_000_000, 128, 1024, 10
@@ -436,7 +450,7 @@ def main_path(res, dev):
         events, runtime = device_trace(step, reps)
         span = max(e for _, _, e in events) - min(s for _, s, _ in events)
         busy = busy_us(events)
-        predict_ms = cuda_ms(lambda: tk.kmeans_predict(res, x, c), 2)
+        predict_ms = cuda_ms(lambda: tk.kmeans_predict(res, x, c), 5)
     emit("main_path", shape=[MAIN_M, MAIN_K], n_clusters=MAIN_N,
          tier="high", n_iter=n_iter, inertia=float(inertia),
          start_cost=start_cost, wall_s=wall, ms_per_iter=it_ms,
@@ -448,7 +462,7 @@ def main_path(res, dev):
              device_ops_per_iter=len(events) / reps,
              runtime_calls=runtime),
          embedding_argmin_agreement=agree, launches=launches)
-    return x, c, ops, launches
+    return x, c, ops, launches, predict_ms
 
 
 def small_fit_matches_cpu(res, dev):
@@ -810,11 +824,14 @@ def select_path(res, dev):
     v_radix = torch.randn(rr, rc, generator=gen, device=dev)
     v_ins = torch.randn(ir, ic, generator=gen, device=dev)
     v_desc = torch.sort(v_ins, dim=1, descending=True).values
+    v_asc = torch.flip(v_desc, dims=(1,))
     cases = (("auto_radix", v_radix, rk, SelectAlgo.AUTO,
               {"radix_threshold": 1, "radix_emit": 1}),
              ("filtered_random", v_ins, ik, SelectAlgo.WARPSORT_FILTERED,
               {"topk_insert": 1}),
              ("filtered_descending", v_desc, ik,
+              SelectAlgo.WARPSORT_FILTERED, {"topk_insert": 1}),
+             ("filtered_ascending", v_asc, ik,
               SelectAlgo.WARPSORT_FILTERED, {"topk_insert": 1}))
     total = {}
     out = {}
@@ -839,7 +856,7 @@ def select_path(res, dev):
         del vals, idx, wv, wi
     emit("select_k_path", cases=out, launches=total,
          check="indices and values equal to the stable key sort, exactly")
-    return v_radix, v_ins, v_desc, total
+    return v_radix, v_ins, v_desc, v_asc, total
 
 
 # ---------------------------------------------------------------------------
@@ -847,8 +864,8 @@ def select_path(res, dev):
 # ---------------------------------------------------------------------------
 
 
-def topk_numbers(db, q, v_radix, v_ins, v_desc, launches, parity_errs,
-                 hgmma):
+def topk_numbers(db, q, v_radix, v_ins, v_desc, v_asc, launches,
+                 parity_errs, hgmma):
     """Each selection kernel at its path's shape: held against its plain
     version, timed beside it, beside a one-call PyTorch yardstick (timed
     here only) and beside its bound; the fused top-k at k = 64 and 256 at
@@ -1004,7 +1021,8 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, launches, parity_errs,
 
         # insertion select at the WARPSORT_FILTERED shape
         ir, ic, ik = v_ins.shape[0], v_ins.shape[1], SELECT_INSERT[2]
-        for v, what in ((v_ins, "random"), (v_desc, "descending")):
+        for v, what in ((v_ins, "random"), (v_desc, "descending"),
+                        (v_asc, "ascending")):
             exact_equal(tti._topk_insert(v, ik, True),
                         tti._insert_plain(v, ik, True),
                         f"topk_insert {what} at the select shape")
@@ -1016,9 +1034,13 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, launches, parity_errs,
             cuda_ms(lambda: torch.topk(v_ins, ik, largest=False), 5),
             "torch.topk(v, k, largest=False)", 0.0, shape=[ir, ic], k=ik,
             descending_rows_ms=cuda_ms(
-                lambda: tti._topk_insert(v_desc, ik, True), 3),
+                lambda: tti._topk_insert(v_desc, ik, True), 5),
             descending_rows_library_ms=cuda_ms(
-                lambda: torch.topk(v_desc, ik, largest=False), 5))
+                lambda: torch.topk(v_desc, ik, largest=False), 5),
+            ascending_rows_ms=cuda_ms(
+                lambda: tti._topk_insert(v_asc, ik, True), 5),
+            ascending_rows_library_ms=cuda_ms(
+                lambda: torch.topk(v_asc, ik, largest=False), 5))
 
         # radix threshold and emit at the select_k_bars shape; the kNN
         # chunk's numbers (above) go beside them
@@ -1106,6 +1128,7 @@ def cdist_topk(q, db, k, rows=131072):
 
 
 CDIST_ROWS = 65536
+CANDIDATES = 10240     # k-means||'s candidates at config 3: about 10 k
 # BASELINE config 5's Lloyd shape: 10M x 256, k = 4096 (planned, not run)
 CONFIG5_LLOYD = (10_000_000, 4096, 256)
 
@@ -1144,6 +1167,19 @@ def busy_us(events):
             total += e - max(s, end)
             end = e
     return total
+
+
+def call_breakdown(fn, reps, kernel):
+    """One call of ``fn`` on the card's clock, from a trace of ``reps``
+    calls, ms: kernels whose name holds ``kernel`` (``kernel_ms``), all
+    its device work (``busy_ms``), and its first device op to its last
+    (``span_ms``: busy time plus the card's wait on the host)."""
+    events, _ = device_trace(fn, reps)
+    own = sum(e - s for name, s, e in events if kernel in name)
+    span = max(e for _, _, e in events) - min(s for _, s, _ in events)
+    return dict(kernel_ms=own / reps / 1e3,
+                busy_ms=busy_us(events) / reps / 1e3,
+                span_ms=span / reps / 1e3)
 
 
 def lloyd_split(c, ops, m):
@@ -1196,6 +1232,25 @@ def topk_plan_phase(dev):
         for k in (1, 64, 256)})
 
 
+def argmin_plan_phase(dev):
+    """The fused argmin's wgmma plan (walk, fold form, splits, units,
+    grid, scratch) at the shapes the kernels line times it: config 3, the
+    k-means|| candidate shape, the kNN shape and the spectral
+    partition's: worked out by the wrapper's planner from the shapes and
+    the card's multiprocessors, not measured."""
+    import torch
+
+    from raft_tpu_torch.linalg import contractions as tc
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    emit("argmin_plan", multiprocessors=sms, **{
+        what: dict(m=m, n=n, **tc._argmin_plan(m, n, sms)._asdict())
+        for what, (m, n) in (
+            ("main", (MAIN_M, MAIN_N)), ("candidates", (MAIN_M, CANDIDATES)),
+            ("knn", (KNN_Q, KNN_N)),
+            ("partition", (1 << RMAT_SCALE, PLANTED_BLOCKS)))})
+
+
 def cdist_argmin(x, y, rows=CDIST_ROWS):
     """The library yardstick of the fused argmin at many centroids:
     torch.cdist over row chunks of x, then argmin."""
@@ -1205,11 +1260,72 @@ def cdist_argmin(x, y, rows=CDIST_ROWS):
                       for off in range(0, x.shape[0], rows)])
 
 
-def kernel_numbers(x, c, ops, parity_errs, launches):
+def argmin_scale(metric, xs, ys, rows):
+    """Per-row magnitude of the fused argmin's distances: |x|^2 + max|y|^2
+    (l2), 1 (cosine), |x| max|y| (inner)."""
+    import torch
+
+    xn, yn = xs.norms[:rows].double(), ys.norms.double().max()
+    if metric == "l2":
+        return (xn + yn).float()
+    if metric == "cosine":
+        return torch.ones(rows, device=xs.v0.device)
+    return (xn * yn).sqrt().float()
+
+
+def argmin_shape(tier, metric, xs, ys, m, n, k, plain_at, library,
+                 library_call, reps):
+    """fused_argmin at one shape: held against its plain version on the
+    first ``plain_at`` rows (labels equal but at near-ties, values within
+    REL of the row's scale); timed beside the plain version (at those
+    rows), the library call (timed here only) and the bound. On the wgmma
+    route the row names the plan's walk and fold form (argmin_plan line
+    for the rest of the plan)."""
+    import torch
+
+    from raft_tpu_torch.linalg import contractions as tc
+
+    what = f"fused_argmin {tier} {metric} at {m} x {n} x {k}"
+    got = tc._fused_argmin(tier, metric, xs, ys, m, n, k)
+    pr = min(m, plain_at)
+    pxs = side_rows(xs, slice(0, pr))
+    want = tc._argmin_plain(tier, metric, pxs, ys, pr, n, k)
+    scale = argmin_scale(metric, xs, ys, pr)
+    bad = labels_agree(got[1][:pr], want[1], plain_rows(tier, metric, pxs,
+                                                        ys, n, k),
+                       scale, REL, what)
+    same = got[1][:pr] == want[1]
+    err = (got[0][:pr] - want[0]).abs()[same]
+    check(bool((err <= REL * scale[same] + 1e-6).all()),
+          f"{what}: values off the plain version by {float(err.max())}")
+    out = dict(shape=[m, n, k], tier=tier, metric=metric,
+               tile=tc.ARGMIN_ROUTE[tier], plain_rows=pr,
+               differing_labels=int(bad.numel()),
+               max_abs_err=float(err.max()) if err.numel() else 0.0)
+    if tc.ARGMIN_ROUTE[tier] == "wgmma":
+        plan = tc._argmin_plan(m, n, torch.cuda.get_device_properties(
+            xs.v0.device).multi_processor_count)
+        out.update(walk=plan.walk, fold=plan.fold)
+    del got, want, bad, same, err
+    out["ms"] = cuda_ms(lambda: tc._fused_argmin(tier, metric, xs, ys, m, n,
+                                                 k), reps)
+    out["plain_ms"] = cuda_ms(lambda: tc._argmin_plain(tier, metric, pxs, ys,
+                                                       pr, n, k), 2)
+    out["bound_ms"], out["bound_by"] = bound(tier, m, n, k, 8 * m)
+    if library is not None:
+        out["library_ms"] = cuda_ms(library, 1)
+        out["library_call"] = library_call
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_numbers(x, c, ops, parity_errs, launches, predict_ms, hgmma):
     """Each kernel at the main-path shapes, at every tier: held against
     its plain version, then timed beside it, beside a one-call PyTorch
     yardstick (timed here only; the port never calls it) and beside its
-    bound. The main path's tier ('high') fills the kernel's row."""
+    bound. The main path's tier ('high') fills the kernel's row. The fused
+    argmin's row adds its tile, walk and fold form at each tier, cosine and
+    inner, kmeans_predict's time and the k-means|| candidate shape."""
     import torch
 
     from raft_tpu_torch import kernels
@@ -1316,24 +1432,39 @@ def kernel_numbers(x, c, ops, parity_errs, launches):
                 "other_tiers": {t: by_tier[t] for t in ("default",
                                                         "highest")}})
 
-        # the k-means|| candidate weighting: ~10k candidates against X
-        n2 = 10240
-        cand = x[torch.randperm(m, device=x.device)[:n2]]
+        # the fused argmin: its tile, walk and fold form at each tier, the
+        # other metrics at this shape, kmeans_predict, and the
+        # k-means|| candidate weighting (~10k candidates against X); the
+        # plain version at the first CDIST_ROWS rows (at all m rows it
+        # needs m x n f32 three times)
+        arow = table[1]
         xs = tc.Side(ops[0], ops[1], ops[2].reshape(-1))
-        cs = tc._side(cand, "high")
-        b, by = bound("high", m, n2, k, 8 * m)
-        table[1]["candidate_shape"] = dict(
-            shape=[m, n2, k], tier="high", bound_ms=b, bound_by=by,
-            ms=cuda_ms(lambda: tc._fused_argmin("high", "l2", xs, cs, m, n2,
-                                                k), 2),
-            # the plain version at all m rows needs m x n2 f32 three times
-            plain_ms_at_plain_rows=cuda_ms(lambda: tc._argmin_plain(
-                "high", "l2", side_rows(xs, slice(0, CDIST_ROWS)), cs,
-                CDIST_ROWS, n2, k), 2),
-            plain_rows=CDIST_ROWS,
-            library_ms=cuda_ms(lambda: cdist_argmin(x, cand), 1),
-            library_call="torch.cdist(x_chunk, y).argmin(1) over chunks of "
-                         f"{CDIST_ROWS} rows")
+        ys = tc._side(c, "high")
+        for tier, row in arow["other_tiers"].items():
+            row["tile"] = tc.ARGMIN_ROUTE[tier]
+        arow["tile"] = tc.ARGMIN_ROUTE["high"]
+        arow["hgmma"] = hgmma["fused_argmin"]
+        arow["kmeans_predict_ms"] = predict_ms
+        arow["by_metric"] = {}
+        for tier, metric in (("high", "l2"), ("high", "cosine"),
+                             ("high", "inner"), ("default", "l2")):
+            arow["by_metric"][f"{tier} {metric}"] = argmin_shape(
+                tier, metric, xs if tier == "high" else tc._side(x, tier),
+                ys if tier == "high" else tc._side(c, tier), m, n, k,
+                CDIST_ROWS,
+                (lambda: torch.cdist(x, c).argmin(1)) if metric == "l2"
+                else None, "torch.cdist(x, c).argmin(1)", 5)
+        for tier, row in (("high", arow),
+                          ("default", arow["other_tiers"]["default"])):
+            row.update({f: arow["by_metric"][f"{tier} l2"][f]
+                        for f in ("walk", "fold")})
+        n2 = CANDIDATES
+        cand = x[torch.randperm(m, device=x.device)[:n2]]
+        arow["candidate_shape"] = argmin_shape(
+            "high", "l2", xs, tc._side(cand, "high"), m, n2, k, CDIST_ROWS,
+            lambda: cdist_argmin(x, cand),
+            f"torch.cdist(x_chunk, y).argmin(1) over chunks of {CDIST_ROWS} "
+            "rows", 2)
     return table
 
 
@@ -1724,16 +1855,21 @@ def best_agreement(labels, truth, k):
 def partition_phase(res, dev):
     """``spectral.partition(res, g, n_clusters=4)`` with its defaults, then
     both analyzers, with the launch counts set to 0 just before. After the
-    counted run, both kernels are held against their plain versions at
+    counted run, the kernels are held against their plain versions at
     this path's shapes: csr_spmm on A·one_hot(labels) [2^20, 4] (the
-    analyzers' product) and csr_spmv on the partition's normalized
-    Laplacian (the Lanczos operator)."""
+    analyzers' product), csr_spmv on the partition's normalized
+    Laplacian (the Lanczos operator), and fused_argmin on its k-means
+    input (the embedding's 2^20 unit rows of 4 against 4 of them) on the
+    wgmma tile and on the FMA tile, each call and the library's also
+    split by a trace into kernel, busy and span time."""
     import torch
 
     from raft_tpu_torch import kernels
+    from raft_tpu_torch.linalg import contractions as tc
     from raft_tpu_torch.sparse import linalg
     from raft_tpu_torch.spectral import (analyze_modularity,
                                          analyze_partition, partition)
+    from raft_tpu_torch.spectral.partition import _embedding
 
     t0 = time.perf_counter()
     g, truth = planted_graph(res)
@@ -1776,6 +1912,23 @@ def partition_phase(res, dev):
                         vecs[:, :1].to(lap.data.dtype), g.n_rows,
                         "partition csr_spmv on the normalized Laplacian")
     errs = {"csr_spmv": err_v, "csr_spmm": err_m}
+    emb = _embedding(vecs).contiguous()
+    pick = torch.randperm(emb.shape[0], device=dev)[:PLANTED_BLOCKS]
+    cents = emb[pick].contiguous()
+    m, k, argmin_part = emb.shape[0], emb.shape[1], {}
+    for tier in ("high", "highest"):
+        xs, ys = tc._side(emb, tier), tc._side(cents, tier)
+        row = argmin_part[tier] = argmin_shape(
+            tier, "l2", xs, ys, m, PLANTED_BLOCKS, k, m,
+            lambda: torch.cdist(emb, cents).argmin(1),
+            "torch.cdist(x, c).argmin(1)", 10)
+        # a call's ms is short enough for its wrapper's host work to show
+        row.update(call_breakdown(lambda: tc._fused_argmin(
+            tier, "l2", xs, ys, m, PLANTED_BLOCKS, k), 10, "argmin"))
+        row.update({f"library_{key}": v for key, v in call_breakdown(
+            lambda: torch.cdist(emb, cents).argmin(1), 10, "argmin").items()
+            if key != "kernel_ms"})
+    del emb, cents, xs, ys
     out = dict(graph=stats, build_s=build_s, wall_s=wall,
                n_iter=rep.n_iter, converged=rep.converged,
                residual=rep.residual, breakdowns=rep.breakdowns,
@@ -1783,9 +1936,10 @@ def partition_phase(res, dev):
                planted_cut=planted_cut, ratio_cut_cost=float(cost),
                modularity=float(q), laplacian_nnz=lap.nnz,
                max_abs_err=errs,
-               launches={k: v for k, v in launches.items() if v})
+               launches={k: v for k, v in launches.items() if v},
+               fused_argmin_at_its_shape=argmin_part)
     emit("spectral_partition", **out)
-    return launches, errs
+    return launches, errs, argmin_part
 
 
 def sparse_numbers(g, x, b16, launches, errs):
@@ -2417,7 +2571,9 @@ def probe_phase(res, dev, db, q, parity_err, hgmma):
     """_minonly_probe at the kNN shape, 'high', counted; timed beside
     fused_topk at k = 1, 64 and 256 on the same operands, so the gap is
     the selection's share; indices against fused_argmin's on the same
-    operands and against the plain version at 256 queries."""
+    operands and against the plain version at 256 queries. Returns the
+    probe's row and fused_argmin's numbers at this shape (its split
+    walk)."""
     import torch
 
     from raft_tpu_torch import kernels
@@ -2462,6 +2618,10 @@ def probe_phase(res, dev, db, q, parity_err, hgmma):
                                                       PLAIN_Q, n, d), 2)
         lib_ms = cuda_ms(lambda: cdist_min(q, db), 1)
         del av, ai, pv, pi
+        argmin_knn = argmin_shape(
+            "high", "l2", xs, ys, nq, n, d, PLAIN_Q,
+            lambda: cdist_min(q, db), "torch.cdist(q, db_chunk).min(1) over "
+            "131,072-row chunks, folded in order", 3)
     b, by = bound("high", nq, n, d, 8 * nq)
     share = {kk: 1.0 - ms / t for kk, t in topk_ms.items()}
     emit("probe", shape=[nq, n, d], tier="high", call_ms=call_ms, ms=ms,
@@ -2469,7 +2629,7 @@ def probe_phase(res, dev, db, q, parity_err, hgmma):
          differing_from_fused_argmin=bad_argmin,
          differing_from_plain_at_plain_q=bad_plain, launches=launches)
     spec = kernels.REGISTRY["minonly"]
-    return {"name": "minonly", "route": "cuda",
+    return argmin_knn, {"name": "minonly", "route": "cuda",
             "source": f"raft_tpu_torch/{spec.source}",
             "replaces": spec.replaces, "launches": launches.get("minonly", 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -2485,8 +2645,6 @@ def probe_phase(res, dev, db, q, parity_err, hgmma):
 def hgmma_count(build, kernels, name):
     """HGMMA (wgmma) instructions in kernel ``name``'s built library, by
     the toolkit's cuobjdump; None where the toolkit has none."""
-    from pathlib import Path
-
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
     if not cuobjdump.is_file():
         return None
@@ -2498,6 +2656,98 @@ def hgmma_count(build, kernels, name):
     return count
 
 
+def fingerprint(root):
+    """``python3 chip_smoke.py --fingerprint ROOT``: pairwise_tile,
+    fused_lloyd, fused_topk, minonly and topk_insert on seeded inputs
+    from the raft_tpu_torch package under ROOT (this checkout, or another
+    commit's package unpacked beside it), each output hashed (SHA-256 of
+    its bytes) and timed at the main paths' shapes (topk_insert at the
+    WARPSORT_FILTERED shape on random, descending and ascending rows, k =
+    64 and 256). Two packages whose hashes all agree give these kernels'
+    outputs bit for bit; run them in turns (A, B, B, A) in one call to
+    compare their times."""
+    import hashlib
+
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from raft_tpu_torch.kernels import build
+    from raft_tpu_torch.linalg import contractions as tc
+    from raft_tpu_torch.matrix import topk_insert as tti
+    from raft_tpu_torch.neighbors import fused_topk as tft
+
+    check(build.PACKAGE_DIR.parent.resolve() == Path(root).resolve(),
+          f"raft_tpu_torch imported from {build.PACKAGE_DIR}, not {root}")
+    build.build()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def digest(outs):
+        h = hashlib.sha256()
+        for t in outs:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    hashes, times = {}, {}
+    for m, n, k in ((3001, 1100, 45), (333, 177, 50), (20000, 8192, 128)):
+        x = torch.randn(m, k, generator=gen, device=dev)
+        y = torch.randn(n, k, generator=gen, device=dev)
+        for tier in ("default", "high", "highest"):
+            xs, ys = tc._side(x, tier), tc._side(y, tier)
+            at = f"{tier} {m}x{n}x{k}"
+            for metric in ("l2", "cosine", "inner"):
+                hashes[f"pairwise_tile {metric} {at}"] = digest(
+                    [tc._pairwise_tile(tier, metric, xs, ys, m, n, k)])
+            hashes[f"fused_lloyd {at}"] = digest(tc._fused_lloyd(
+                tier, xs, ys, m, n, k))
+            for kk in (1, 64, 256):
+                hashes[f"fused_topk k={kk} {at}"] = digest(tft._fused_topk(
+                    tier, "l2", xs, ys, m, n, k, kk))
+            hashes[f"minonly {at}"] = digest(tft._minonly(tier, xs, ys, m,
+                                                          n, k))
+    x = torch.randn(MAIN_M, MAIN_K, generator=gen, device=dev)
+    c = x[:MAIN_N].clone()
+    xs, cs = tc._side(x, "high"), tc._side(c, "high")
+    hashes["fused_lloyd high main"] = digest(tc._fused_lloyd(
+        "high", xs, cs, MAIN_M, MAIN_N, MAIN_K))
+    times["fused_lloyd high main"] = cuda_ms(lambda: tc._fused_lloyd(
+        "high", xs, cs, MAIN_M, MAIN_N, MAIN_K), 10)
+    times["pairwise_tile high main"] = cuda_ms(lambda: tc._pairwise_tile(
+        "high", "l2", xs, cs, MAIN_M, MAIN_N, MAIN_K), 10)
+    del x, c, xs, cs
+    torch.cuda.empty_cache()
+    db = torch.randn(KNN_N, KNN_D, generator=gen, device=dev)
+    q = torch.randn(KNN_Q, KNN_D, generator=gen, device=dev)
+    qs, ds = tc._side(q, "high"), tc._side(db, "high")
+    for kk in (64, 256):
+        hashes[f"fused_topk k={kk} high knn"] = digest(tft._fused_topk(
+            "high", "l2", qs, ds, KNN_Q, KNN_N, KNN_D, kk))
+        times[f"fused_topk k={kk} high knn"] = cuda_ms(
+            lambda: tft._fused_topk("high", "l2", qs, ds, KNN_Q, KNN_N,
+                                    KNN_D, kk), 5)
+    hashes["minonly high knn"] = digest(tft._minonly("high", qs, ds, KNN_Q,
+                                                     KNN_N, KNN_D))
+    times["minonly high knn"] = cuda_ms(lambda: tft._minonly(
+        "high", qs, ds, KNN_Q, KNN_N, KNN_D), 5)
+    del db, q, qs, ds
+    torch.cuda.empty_cache()
+    v = torch.randn(*SELECT_INSERT[:2], generator=gen, device=dev)
+    desc = torch.sort(v, dim=1, descending=True).values
+    for what, rows in (("random", v), ("descending", desc),
+                       ("ascending", torch.flip(desc, dims=(1,)))):
+        for kk in (SELECT_INSERT[2], 256):
+            at = f"topk_insert k={kk} {what}"
+            hashes[at] = digest(tti._topk_insert(rows, kk, True))
+            times[at] = cuda_ms(lambda: tti._topk_insert(rows, kk, True), 20)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"fingerprint": str(root), "device": smi,
+                      "hashes": hashes, "ms": times}))
+    return 0
+
+
 def main():
     import torch
 
@@ -2505,6 +2755,9 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--fingerprint"]:
+        check(len(sys.argv) == 3, "usage: chip_smoke.py --fingerprint ROOT")
+        return fingerprint(sys.argv[2])
     from raft_tpu_torch import device_resources, kernels
     from raft_tpu_torch.kernels import build
 
@@ -2525,8 +2778,8 @@ def main():
     t0 = time.perf_counter()
     built = build.build()
     hgmma = {name: hgmma_count(build, kernels, name)
-             for name in ("pairwise_tile", "fused_lloyd", "fused_topk",
-                          "minonly")}
+             for name in ("pairwise_tile", "fused_argmin", "fused_lloyd",
+                          "fused_topk", "minonly")}
     RECORD["build_logs"] = {n: b["log"] for n, b in built.items()}
     ptxas = "\n".join(b["log"] for b in built.values())
     emit("build", seconds=time.perf_counter() - t0,
@@ -2540,17 +2793,19 @@ def main():
     parity_errs.update(topk_parity(dev))
     parity_errs.update(sparse_parity(dev))
     parity_errs.update(new_kernel_parity(dev))
-    x, c, ops, launches = main_path(res, dev)
+    x, c, ops, launches, predict_ms = main_path(res, dev)
     lloyd_plan_phase(dev)
     topk_plan_phase(dev)
+    argmin_plan_phase(dev)
     small_fit_matches_cpu(res, dev)
     pairwise_phase(res, dev)
     unexp_launches, unexp_err = unexpanded_pairwise_phase(res, dev)
-    table = kernel_numbers(x, c, ops, parity_errs, launches)
+    table = kernel_numbers(x, c, ops, parity_errs, launches, predict_ms,
+                           hgmma)
     del x, c, ops
     torch.cuda.empty_cache()
     db, q, knn_launches, _ = knn_path(res, dev)
-    v_radix, v_ins, v_desc, select_launches = select_path(res, dev)
+    v_radix, v_ins, v_desc, v_asc, select_launches = select_path(res, dev)
     path_launches = {n: knn_launches.get(n, 0) + select_launches.get(n, 0)
                      for n in knn_launches}
     for name in ("fused_topk", "topk_insert", "radix_threshold",
@@ -2558,8 +2813,8 @@ def main():
         check(path_launches[name] > 0, f"kNN and select_k paths never "
               f"launched {name}")
     topk_table, pairwise_chunk = topk_numbers(db, q, v_radix, v_ins, v_desc,
-                                              path_launches, parity_errs,
-                                              hgmma)
+                                              v_asc, path_launches,
+                                              parity_errs, hgmma)
     knn_k_sweep(db, q)
     next(r for r in table if r["name"] == "pairwise_tile")[
         "knn_chunk_shape"] = pairwise_chunk
@@ -2569,13 +2824,17 @@ def main():
     table.append(unexpanded_numbers(
         db, q, {"unexpanded_tile": unexp_launches},
         max(parity_errs["unexpanded_tile"], unexp_err)))
-    table.append(probe_phase(res, dev, db, q, parity_errs["minonly"],
-                             hgmma["minonly"]))
-    del db, q, v_radix, v_ins, v_desc
+    argmin_row = next(r for r in table if r["name"] == "fused_argmin")
+    argmin_row["knn_shape"], probe_row = probe_phase(
+        res, dev, db, q, parity_errs["minonly"], hgmma["minonly"])
+    table.append(probe_row)
+    del db, q, v_radix, v_ins, v_desc, v_asc
     torch.cuda.empty_cache()
 
     g, x, b16, c4, c4_launches = config4_phase(res, dev)
-    part_launches, part_errs = partition_phase(res, dev)
+    part_launches, part_errs, argmin_row["partition_shape"] = \
+        partition_phase(res, dev)
+    argmin_row["partition_launches"] = part_launches["fused_argmin"]
     sparse_launches = {n: c4_launches[n] + part_launches[n]
                        for n in ("csr_spmv", "csr_spmm")}
     table += sparse_numbers(g, x, b16, sparse_launches, {

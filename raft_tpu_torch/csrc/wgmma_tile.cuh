@@ -1,9 +1,9 @@
 // Tensor-core cross-product tile of the port's contraction kernels on
 // Hopper (sm_90a): x·yᵀ for a 128 x 128 output tile, bf16 operands, f32
-// accumulators, on wgmma.mma_async. pairwise_tile.cu, fused_lloyd.cu,
-// fused_topk.cu and minonly.cu run their tiers 'default' and 'high' on it;
-// common.cuh's CUDA-core tile serves 'highest' (there is no exact f32
-// tensor-core product) and fused_argmin.cu.
+// accumulators, on wgmma.mma_async. pairwise_tile.cu, fused_argmin.cu,
+// fused_lloyd.cu, fused_topk.cu and minonly.cu run their tiers 'default'
+// and 'high' on it; common.cuh's CUDA-core tile serves 'highest' (there is
+// no exact f32 tensor-core product).
 //
 // Operands: bf16 rows, x [m, >= k] and y [n, >= k], row strides ldx and
 // ldy elements. k, ldx and ldy are multiples of 8 and the bases 16-byte
@@ -21,12 +21,13 @@
 // b, b + G, b + 2G, ...; pairwise_tile.cu), the row-owning walk (block b
 // takes row tiles b, b + G, ... and inside each all its column tiles in
 // order, so that a row's running reduction stays in registers;
-// fused_lloyd.cu) or the split walk (the column tiles cut into splits of
+// fused_lloyd.cu, and fused_argmin.cu where X has enough row tiles to
+// fill the card) or the split walk (the column tiles cut into splits of
 // tps tiles, the last one shorter; block b takes the work units (row
 // tile, split) b, b + G, ..., unit u being row tile u / splits and split
 // u % splits, and inside each the split's column tiles in order;
-// fused_topk.cu and minonly.cu, whose few row tiles alone would leave
-// most multiprocessors idle).
+// fused_topk.cu, minonly.cu and fused_argmin.cu at few row tiles, which
+// alone would leave most multiprocessors idle).
 // Each tile's depth goes in stages of 64 (one 128-byte row of bf16 a tile
 // row), two stages in a ring, filled by cp.async (zero-fill past m, n and
 // k) into the 128-byte-swizzled layout wgmma reads: row r of a stage at
@@ -37,11 +38,12 @@
 // tile's or the next tile's), as soon as both warpgroups are done with it,
 // so the next tile's operands arrive while the caller runs its epilogue.
 //
-// Epilogue helpers: col_terms (a tile's column norms, loaded before its
-// product), the L2 first-min argmin on the accumulator fragment
-// (fold_min and quad_argmin, which fused_lloyd.cu and minonly.cu share,
-// and minonly.cu's branch-free tile fold fold_l2_tile), and the host
-// check of the operand contract (operands_ok).
+// Epilogue helpers: col_terms (a tile's column terms, loaded before its
+// product), the first-min argmin on the accumulator fragment (fold_min
+// and quad_argmin, under common.cuh's order with NaN never winning, as
+// fused_lloyd.cu and minonly.cu fold, or NaN minimal, as fused_argmin.cu
+// folds; minonly.cu's branch-free L2 tile fold fold_l2_tile), and the
+// host check of the operand contract (operands_ok).
 #pragma once
 
 #include <cstdint>
@@ -328,11 +330,12 @@ __device__ __forceinline__ void col_terms(float (&yt)[kBN / 4], int col0,
 }
 
 // The first-min fold under common.cuh's strict order (the smaller value,
-// then the smaller column; a NaN never wins): (bv, bi) takes (v, c) when
-// it comes first.
+// then the smaller column; if FINITE a NaN never wins, else a NaN comes
+// first): (bv, bi) takes (v, c) when it comes first.
+template <bool FINITE = true>
 __device__ __forceinline__ void fold_min(float v, int c, float& bv,
                                          int& bi) {
-  if (before<true>(v, c, bv, bi)) {
+  if (before<FINITE>(v, c, bv, bi)) {
     bv = v;
     bi = c;
   }
@@ -362,7 +365,9 @@ __device__ __forceinline__ void fold_l2_tile(const float (&d)[kAcc],
 }
 
 // The four lanes of a quad hold the same two rows: combine their running
-// (min, argmin) by two shuffles, after which every lane holds the rows'.
+// (min, argmin) by two shuffles, under fold_min<FINITE>'s order, after
+// which every lane holds the rows'.
+template <bool FINITE = true>
 __device__ __forceinline__ void quad_argmin(float& bv0, int& bi0, float& bv1,
                                             int& bi1) {
 #pragma unroll
@@ -371,8 +376,8 @@ __device__ __forceinline__ void quad_argmin(float& bv0, int& bi0, float& bv1,
     const int i0 = __shfl_xor_sync(0xffffffffu, bi0, off);
     const float v1 = __shfl_xor_sync(0xffffffffu, bv1, off);
     const int i1 = __shfl_xor_sync(0xffffffffu, bi1, off);
-    fold_min(v0, i0, bv0, bi0);
-    fold_min(v1, i1, bv1, bi1);
+    fold_min<FINITE>(v0, i0, bv0, bi0);
+    fold_min<FINITE>(v1, i1, bv1, bi1);
   }
 }
 

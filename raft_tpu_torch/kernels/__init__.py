@@ -62,8 +62,10 @@ REGISTRY: Dict[str, KernelSpec] = {
             name="fused_argmin",
             source="csrc/fused_argmin.cu",
             symbol="raft_fused_argmin",
-            # tier, metric, operands..., val, idx, m, n, k, stream
-            argtypes=(_I, _I) + _OPERANDS + (_P, _P, _I, _I, _I, _P),
+            # tier, metric, operands..., m, n, k, splits, flat, grid,
+            # part_v, part_i, val, idx, stream
+            argtypes=(_I, _I) + _OPERANDS + (_I, _I, _I, _I, _I, _I, _P, _P,
+                                             _P, _P, _P),
             plain="raft_tpu_torch.linalg.contractions._argmin_plain",
             ports="raft_tpu/linalg/contractions.py:_argmin_resident_kernel"
                   "(_split), _argmin_tiled_kernel(_split)",

@@ -35,10 +35,11 @@ The TPU tile knobs of the reference functions (``tm``, ``tn``,
 fixed 128 x 128 tiles that fit Hopper's 227 KB of shared memory a block
 and mask ragged edges, so the reference's VMEM planner and its fallback
 path are gone. What is left to plan is the Lloyd pass's argmin grid and
-scratch (:func:`_lloyd_plan`) and, for the tensor-core route at
-``'default'`` and ``'high'`` (:data:`PAIRWISE_ROUTE`, the Lloyd pass's
-argmin alike), the bf16 operand rows with their depth padded by zero
-columns to a multiple of 8 (:func:`_wgmma_operands`).
+scratch (:func:`_lloyd_plan`), the fused argmin's walk (:func:`_argmin_plan`)
+and, for the tensor-core route at ``'default'`` and ``'high'``
+(:data:`PAIRWISE_ROUTE`, :data:`ARGMIN_ROUTE`, the Lloyd pass's argmin
+alike), the bf16 operand rows with their depth padded by zero columns to
+a multiple of 8 (:func:`_wgmma_operands`).
 """
 
 from __future__ import annotations
@@ -67,9 +68,16 @@ TILE_N = 128
 # csrc/wgmma_tile.cuh, or csrc/common.cuh's CUDA-core FMA tile (no exact
 # f32 tensor-core product exists for 'highest').
 PAIRWISE_ROUTE = {"default": "wgmma", "high": "wgmma", "highest": "fma"}
+# Tile of csrc/fused_argmin.cu at each tier, as PAIRWISE_ROUTE.
+ARGMIN_ROUTE = {"default": "wgmma", "high": "wgmma", "highest": "fma"}
 # The wgmma route's operand rows: depth and row stride a multiple of 8
 # bf16 (16 bytes), so every 16-byte copy of a row is whole.
 WGMMA_DEPTH = 8
+# The wgmma split walk's planning (:func:`_plan_splits`, shared by the
+# fused argmin and neighbors/fused_topk.py): the fewest splits whose
+# busiest block walks at most PLAN_SLACK more column tiles than under the
+# best split count.
+PLAN_SLACK = 1 / 16
 
 # The Lloyd pass (csrc/fused_lloyd.cu): an argmin on a persistent grid of
 # one block a multiprocessor (132 on an H100 SXM), then sums from the
@@ -297,19 +305,94 @@ def _pairwise_tile(tier: str, metric: str, xs: Side, ys: Side,
     return out
 
 
+def _whole_splits(n_tiles: int, splits: int):
+    """``(splits, tiles a split)`` with ``splits`` cut down until no
+    split is empty (the last may be shorter)."""
+    tps = cdiv(n_tiles, splits)
+    return cdiv(n_tiles, tps), tps
+
+
+def _plan_splits(row_tiles: int, n_tiles: int, sms: int, most: int,
+                 splits: Optional[int] = None):
+    """``(splits, tiles a split)`` of a wgmma split walk over
+    ``row_tiles`` x ``n_tiles`` tiles on ``sms`` persistent blocks:
+    ``splits`` given (a test's choice, at most ``most``) or the fewest,
+    among 1 .. min(most, sms), whose busiest block walks at most
+    PLAN_SLACK more column tiles than the best count's; none empty."""
+    def walk(s):
+        s, tps = _whole_splits(n_tiles, s)
+        return cdiv(row_tiles * s, sms) * tps
+
+    if splits is None:
+        tried = range(1, min(most, sms) + 1)
+        best = min(walk(s) for s in tried)
+        splits = next(s for s in tried if walk(s) <= best * (1 + PLAN_SLACK))
+    return _whole_splits(n_tiles, min(splits, most))
+
+
+ArgminPlan = namedtuple("ArgminPlan", "walk fold splits tiles_per_split "
+                        "units grid scratch_bytes")
+
+
+def _argmin_plan(m: int, n: int, sms: int = LLOYD_SMS,
+                 blocks: Optional[int] = None,
+                 splits: Optional[int] = None) -> ArgminPlan:
+    """The fused argmin's wgmma plan for m rows against n columns on
+    ``sms`` multiprocessors, from the shapes alone:
+
+    - ``splits``, ``tiles_per_split``: the 128-column tiles cut into
+      splits, none empty, by :func:`_plan_splits` (``splits`` a test's
+      choice); one split is the row-owning ``walk`` ``"row"`` (X has
+      enough row tiles to fill the card), more the ``"split"`` walk;
+    - ``fold``: ``"flat"`` (whole tiles folded branch-free) where n
+      fills a tile, else ``"branching"`` (n < 128, one cut tile, where
+      the flat form's code is slower);
+    - ``units``: row tiles x splits; ``grid``: the persistent blocks,
+      ``blocks`` or one a multiprocessor, at most one a unit;
+    - ``scratch_bytes``: the split walk's [splits][m] partials (value and
+      column), O(splits m) and never a term in grid x n x k."""
+    if min(m, n, sms) < 1 or (blocks is not None and blocks < 1) or (
+            splits is not None and splits < 1):
+        raise ValueError(f"bad argmin plan arguments m={m} n={n} sms={sms}"
+                         f" blocks={blocks} splits={splits}")
+    row_tiles, n_tiles = cdiv(m, TILE_M), cdiv(n, TILE_N)
+    splits, tps = _plan_splits(row_tiles, n_tiles, sms, n_tiles, splits)
+    units = row_tiles * splits
+    grid = min(sms if blocks is None else blocks, units)
+    return ArgminPlan("row" if splits == 1 else "split",
+                      "flat" if n >= TILE_N else "branching", splits, tps,
+                      units, grid, 0 if splits == 1 else 8 * splits * m)
+
+
 def _fused_argmin(tier: str, metric: str, xs: Side, ys: Side,
-                  m: int, n: int, k: int):
-    """Per-row (min, first-min argmin): csrc/fused_argmin.cu on CUDA."""
+                  m: int, n: int, k: int, blocks: Optional[int] = None,
+                  splits: Optional[int] = None):
+    """Per-row (min, first-min argmin): csrc/fused_argmin.cu on CUDA, on
+    the tile :data:`ARGMIN_ROUTE` names for the tier; the wgmma route in
+    the walk of :func:`_argmin_plan`. ``blocks`` and ``splits``: a test's
+    grid and split count (default: the plan's); no result depends on
+    them."""
     if _on_cpu(xs, ys):
         return _argmin_plain(tier, metric, xs, ys, m, n, k)
     _check_side(xs, tier, m, k, "x")
     _check_side(ys, tier, n, k, "y")
     dev = xs.v0.device
-    val = torch.empty((m,), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    val = torch.empty((m,), **f32)
     idx = torch.empty((m,), dtype=torch.int32, device=dev)
+    nsplit, flat, grid, part_v, part_i = 1, 1, 0, None, None
+    if ARGMIN_ROUTE[tier] == "wgmma":
+        plan = _argmin_plan(m, n, torch.cuda.get_device_properties(
+            dev).multi_processor_count, blocks, splits)
+        xs, ys, k = _wgmma_operands(tier, xs, ys, m, n, k)
+        nsplit, flat, grid = plan.splits, int(plan.fold == "flat"), plan.grid
+        if nsplit > 1:
+            part_v = torch.empty((nsplit, m), **f32)
+            part_i = torch.empty((nsplit, m), dtype=torch.int32, device=dev)
     kernels.launch("fused_argmin", dev, _TIER_CODE[tier],
-                   _METRIC_CODE[metric], *_operand_args(xs, ys),
-                   val.data_ptr(), idx.data_ptr(), m, n, k)
+                   _METRIC_CODE[metric], *_operand_args(xs, ys), m, n, k,
+                   nsplit, flat, grid, _ptr(part_v), _ptr(part_i),
+                   val.data_ptr(), idx.data_ptr())
     return val, idx
 
 

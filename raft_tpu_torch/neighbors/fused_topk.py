@@ -46,9 +46,9 @@ ROUTE = {"default": "wgmma", "high": "wgmma", "highest": "fma"}
 # database split). Each split refills every row's list, about
 # k (1 + ln(cols / k)) insertions a row, so the plan takes the fewest
 # splits whose busiest block walks at most PLAN_SLACK more column tiles
-# than under the best split count. A row's split lists are merged in
-# MERGE_BYTES of shared memory.
-PLAN_SLACK = 1 / 16
+# than under the best split count (linalg/contractions._plan_splits and
+# PLAN_SLACK, which the fused argmin's plan shares). A row's split lists
+# are merged in MERGE_BYTES of shared memory.
 MERGE_BYTES = 200 * 1024
 
 # The FMA route's grid ('highest'): query tiles x database splits, aiming
@@ -82,13 +82,6 @@ def _fused_topk_plain(tier: str, metric: str, xs, ys, m: int, n: int,
                                                  kd), k)
 
 
-def _whole_splits(n_tiles: int, splits: int):
-    """``(splits, tiles a split)`` with ``splits`` cut down until no
-    split is empty (the last may be shorter)."""
-    tps = cdiv(n_tiles, splits)
-    return cdiv(n_tiles, tps), tps
-
-
 @functools.lru_cache(maxsize=256)
 def _split_plan(m: int, n: int, k: int, sms: int,
                 splits: Optional[int] = None) -> SplitPlan:
@@ -98,7 +91,7 @@ def _split_plan(m: int, n: int, k: int, sms: int,
 
     - ``splits``, ``tiles_per_split``: the database's 128-column tiles
       cut into splits, none empty; ``splits`` given (a test's choice) or
-      the fewest whose busiest block walks at most PLAN_SLACK more tiles
+      the fewest whose busiest block walks at most tc.PLAN_SLACK more tiles
       than the best count's, among 1 .. sms;
     - ``units``: query tiles x splits, the walk's work units; ``grid``:
       its persistent blocks, one a multiprocessor, at most one a unit;
@@ -107,17 +100,9 @@ def _split_plan(m: int, n: int, k: int, sms: int,
         raise ValueError(f"bad split plan arguments m={m} n={n} k={k} "
                          f"sms={sms} splits={splits}")
     row_tiles, n_tiles = cdiv(m, tc.TILE_M), cdiv(n, tc.TILE_N)
-    most = min(n_tiles, MERGE_BYTES // (8 * k))
-
-    def walk(s):
-        s, tps = _whole_splits(n_tiles, s)
-        return cdiv(row_tiles * s, sms) * tps
-
-    if splits is None:
-        tried = range(1, min(most, sms) + 1)
-        best = min(walk(s) for s in tried)
-        splits = next(s for s in tried if walk(s) <= best * (1 + PLAN_SLACK))
-    splits, tps = _whole_splits(n_tiles, min(splits, most))
+    splits, tps = tc._plan_splits(row_tiles, n_tiles, sms,
+                                  min(n_tiles, MERGE_BYTES // (8 * k)),
+                                  splits)
     units = row_tiles * splits
     return SplitPlan(splits, tps, units, min(sms, units), 8 * splits * m * k)
 
@@ -128,7 +113,7 @@ def _fma_splits(m: int, n: int, splits: Optional[int] = None) -> int:
     if splits is None:
         splits = max(1, min(n_tiles, cdiv(TARGET_BLOCKS, cdiv(m, tc.TILE_M)),
                             MAX_SPLITS))
-    return _whole_splits(n_tiles, min(splits, n_tiles))[0]
+    return tc._whole_splits(n_tiles, min(splits, n_tiles))[0]
 
 
 def _launch_plan(tier: str, xs, ys, m: int, n: int, kd: int, k: int,

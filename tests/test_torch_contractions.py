@@ -27,6 +27,8 @@ from _torch_util import (TIERS, assert_labels_agree, bf16_round, both_tiers,
 from raft_tpu.linalg import contractions as jc
 from raft_tpu_torch import interop
 from raft_tpu_torch.linalg import contractions as tc
+from raft_tpu_torch.matrix.epilogue import iota_argmin
+from raft_tpu_torch.neighbors import fused_topk as tft
 from raft_tpu_torch.util import precision as tprec
 
 REL = 1e-5
@@ -197,11 +199,15 @@ def test_fused_argmin_matches_reference(tier, metric):
             np.abs(n(tv) - d[np.arange(len(d)), n(ti)]), REL * scale + 1e-6)
 
 
-def test_fused_argmin_ties_and_nan_match_reference():
+@pytest.mark.parametrize("metric", METRICS)
+def test_fused_argmin_ties_and_nan_match_reference(metric):
     """A duplicated column is a tie the smaller index wins; a NaN row
     gives a NaN distance at column 0 (NaN is minimal); a NaN column wins
-    every row."""
+    every row. Under inner, column 5 is made long, so that row 0 (a copy
+    of it) is nearest to it there too."""
     x, y = _data(5, m=40, nn=30, k=8)
+    if metric == "inner":
+        y[5] *= 3
     y[17] = y[5]
     x[0] = y[5]
     x[3] = np.nan
@@ -209,14 +215,88 @@ def test_fused_argmin_ties_and_nan_match_reference():
     for yy in (y, np.where(np.arange(30)[:, None] == 11, np.nan, y)):
         yy = yy.astype(np.float32)
         with both_tiers("high"):
-            jv, ji = jc.fused_argmin_pallas(x, yy, "l2")
-            tv, ti = tc.fused_argmin_pallas(t(x), t(yy), "l2")
+            jv, ji = jc.fused_argmin_pallas(x, yy, metric)
+            tv, ti = tc.fused_argmin_pallas(t(x), t(yy), metric)
         np.testing.assert_array_equal(n(ti), n(ji))
         np.testing.assert_array_equal(np.isnan(n(tv)), np.isnan(n(jv)))
         got.append(n(ti))
         assert n(ti)[3] == 0 and np.isnan(n(tv)[3])
     assert got[0][0] == 5                     # tie: the smaller index
     assert (np.delete(got[1], 3) == 11).all()   # the NaN column is minimal
+
+
+@pytest.mark.parametrize("m,nn,walk", [
+    (1_000_000, 1024, "row"), (1_000_000, 10240, "row"),
+    (1 << 20, 4, "row"), (1 << 20, 128, "row"), (4096, 1 << 20, "split"),
+    (300, 1100, "split"), (1, 1, "row")])
+def test_argmin_plan(m, nn, walk):
+    """The fused argmin's wgmma plan: the row-owning walk where X has
+    enough row tiles to fill the card (config 3, the k-means|| candidate
+    shape, spectral partition's), else the split walk with the fused
+    top-k's planning (the kNN shape's 4 splits); splits none empty and
+    covering every column tile; the branching fold only where n cuts the
+    one tile; scratch only for the split walk's partials, with no term in
+    grid x n x k."""
+    plan = tc._argmin_plan(m, nn)
+    row_tiles, n_tiles = -(-m // tc.TILE_M), -(-nn // tc.TILE_N)
+    assert plan.walk == walk and (plan.splits == 1) == (walk == "row")
+    assert plan.fold == ("flat" if nn >= tc.TILE_N else "branching")
+    assert (plan.splits - 1) * plan.tiles_per_split < n_tiles \
+        <= plan.splits * plan.tiles_per_split
+    assert plan.units == row_tiles * plan.splits
+    assert plan.grid == min(tc.LLOYD_SMS, plan.units)
+    assert plan.scratch_bytes == (0 if walk == "row" else 8 * plan.splits * m)
+    for other in (tc._argmin_plan(m, nn, blocks=1),
+                  tc._argmin_plan(m, nn, sms=plan.grid)):
+        assert other.scratch_bytes <= plan.scratch_bytes
+    assert tc._argmin_plan(m, nn, blocks=3).grid == min(3, plan.units)
+    if 8 * n_tiles <= tft.MERGE_BYTES:       # the top-k's plan at k = 1
+        assert plan.splits == tft._split_plan(m, nn, 1, tc.LLOYD_SMS).splits
+    for forced in (1, 2, n_tiles, n_tiles + 5):
+        fp = tc._argmin_plan(m, nn, splits=forced)
+        assert fp.splits == tc._whole_splits(n_tiles, min(forced,
+                                                           n_tiles))[0]
+        assert fp.walk == ("row" if fp.splits == 1 else "split")
+        assert fp.fold == plan.fold
+    with pytest.raises(ValueError):
+        tc._argmin_plan(m, nn, splits=0)
+    if m * nn <= 1 << 20:
+        assert tc._argmin_plan(m, nn, splits=n_tiles).splits == n_tiles
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_argmin_split_merge_emulated(metric):
+    """The split walk in plain torch: each split's (min, first-min
+    argmin), folded in split order under the NaN-minimal order (the merge
+    kernel's rule), gives the one-call plain version, NaN columns in a
+    later split and ties across the split edge included."""
+    x, y = _data(7, m=50, nn=700, k=12)
+    y[384] = y[3]                    # a tie across the split edge
+    x[0] = y[3]
+    y[650] = np.nan                  # the last split's NaN column wins
+    x[9, 4] = np.nan                 # a NaN row: column 0
+    xs, ys = (tc._side(t(a), "high") for a in (x, y))
+    want = tc._argmin_plain("high", metric, xs, ys, 50, 700, 12)
+    d = tc._pairwise_plain("high", metric, xs, ys, 50, 700, 12)
+    plan = tc._argmin_plan(50, 700, splits=2)
+    edge = plan.tiles_per_split * tc.TILE_N
+    assert plan.splits == 2 and edge == 384
+    bv = bi = None
+    for c0 in range(0, 700, edge):
+        tile = d[:, c0:c0 + edge]
+        _, v, i = iota_argmin(tile, tile.shape[1])
+        v, i = v[:, 0], i[:, 0] + c0
+        if bv is None:
+            bv, bi = v, i
+            continue
+        vn, bn = torch.isnan(v), torch.isnan(bv)
+        take = torch.where(vn | bn, vn & ~bn,
+                           (v < bv) | ((v == bv) & (i < bi)))
+        bv, bi = torch.where(take, v, bv), torch.where(take, i, bi)
+    assert torch.equal(bi, want[1])
+    assert torch.equal(torch.isnan(bv), torch.isnan(want[0]))
+    assert torch.equal(bv.nan_to_num(), want[0].nan_to_num())
+    assert int(bi[9]) == 0 and (np.delete(n(bi), 9) == 650).all()
 
 
 def test_fused_l2_argmin_matches_reference():

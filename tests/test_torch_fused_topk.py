@@ -67,14 +67,14 @@ def test_split_plan_covers_every_tile_once(m, n, k):
         _walk(plan, m, n)
 
     def busiest(s):
-        s, tps = tft._whole_splits(n_tiles, s)
+        s, tps = tc._whole_splits(n_tiles, s)
         return cdiv(row_tiles * s, SMS) * tps
 
     tried = range(1, min(n_tiles, tft.MERGE_BYTES // (8 * k),
                          SMS) + 1)
     best = min(busiest(s) for s in tried)
-    assert busiest(plan.splits) <= best * (1 + tft.PLAN_SLACK)
-    assert all(busiest(s) > best * (1 + tft.PLAN_SLACK)
+    assert busiest(plan.splits) <= best * (1 + tc.PLAN_SLACK)
+    assert all(busiest(s) > best * (1 + tc.PLAN_SLACK)
                for s in tried if s < plan.splits)
 
 

@@ -289,6 +289,118 @@ def test_fused_topk_matches_plain_on_card(card, tier, metric):
                     assert got[1][2, :2].tolist() == [edge - 1, edge + 1]
 
 
+def _argmin_data(g, card, m, n, kd, edge, dup, nan_col):
+    """Normal rows with ties the smaller column must win: row 0 a copy of
+    column 3, which column ``edge`` (a split edge) duplicates; row 2 a
+    copy of column edge - 1, duplicated at edge + 1; row 4 a copy of
+    column 7, duplicated at ``dup`` (past a tile edge where n spans
+    several). Row 1 is NaN; column ``nan_col``, when given, is NaN and
+    must win every other row."""
+    x = torch.randn(m, kd, generator=g, device=card)
+    y = torch.randn(n, kd, generator=g, device=card)
+    y[edge], y[edge + 1], y[dup] = y[3], y[edge - 1], y[7]
+    x[0], x[2], x[4] = y[3], y[edge - 1], y[7]
+    x[1] = float("nan")
+    if nan_col is not None:
+        y[nan_col] = float("nan")
+    return x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "cosine", "inner"])
+@pytest.mark.parametrize("tier", ["default", "high"])
+def test_fused_argmin_wgmma_walks_on_card(card, tier, metric):
+    """The wgmma route against its plain version: ragged m, n and depth
+    (n past a tile and a split edge, depth not a multiple of 8), ties
+    across a tile edge and a split edge (the smaller column wins), a NaN
+    row ((NaN, 0)) and a NaN column in the last split (it wins every
+    other row); outputs bitwise equal on the row-owning walk and the
+    split walk, on several grids and split counts; both fold forms (the
+    branching one at n < 128, one cut tile)."""
+    g = torch.Generator(device=card).manual_seed(21)
+    folds = set()
+    for m, n, kd, edge, dup in ((300, 1100, 37, 640, 130),
+                                (129, 300, 45, 256, 130),
+                                (300, 100, 37, 40, 60)):
+        n_tiles = -(-n // tc.TILE_N)
+        folds.add(tc._argmin_plan(m, n).fold)
+        for nan_col in (None, n - 5):
+            x, y = _argmin_data(g, card, m, n, kd, edge, dup, nan_col)
+            xs, ys = tc._side(x, tier), tc._side(y, tier)
+            got = _counted("fused_argmin", lambda: tc._fused_argmin(
+                tier, metric, xs, ys, m, n, kd))
+            walks = set()
+            for blocks, splits in ((None, 1), (2, 1), (None, 2), (3, 2),
+                                   (None, n_tiles), (1, n_tiles)):
+                walks.add(tc._argmin_plan(m, n, splits=splits).walk)
+                again = tc._fused_argmin(tier, metric, xs, ys, m, n, kd,
+                                         blocks=blocks, splits=splits)
+                assert torch.equal(got[1], again[1]), (m, blocks, splits)
+                assert torch.equal(got[0].view(torch.int32),
+                                   again[0].view(torch.int32))
+            assert walks == ({"row", "split"} if n_tiles > 1 else {"row"})
+            want = tc._argmin_plain(tier, metric, xs, ys, m, n, kd)
+            assert int(got[1][1]) == 0 and bool(torch.isnan(got[0][1]))
+            if nan_col is not None:
+                assert bool((got[1][2:] == nan_col).all()) and int(
+                    got[1][0]) == nan_col
+                assert bool(torch.isnan(got[0]).all())
+                assert torch.equal(got[1], want[1])
+                continue
+            if metric != "inner":
+                assert got[1][[0, 2, 4]].tolist() == [3, edge - 1, 7]
+            live = torch.ones(m, dtype=torch.bool, device=card)
+            live[1] = False
+            same = (got[1] == want[1]) & live
+            assert float(same.float().sum()) >= 0.99 * (m - 1)
+            scale = float((x[live] ** 2).sum(1).max()
+                          + (y ** 2).sum(1).max())
+            if metric == "cosine":
+                scale = 1.0
+            err = (got[0] - want[0]).abs()[same]
+            assert float(err.max()) <= 1e-5 * scale
+    assert folds == {"flat", "branching"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_topk_insert_row_orders_on_card(card, dtype, select_min):
+    """Exactly the plain version on rows in every order the seeded,
+    shared bound meets: random, sorted for and against the selection,
+    constant, with NaN and +-inf runs, short rows (no seed: fewer than k
+    sampled keys) and rows of fewer than k insertable keys; k from 1 to
+    256."""
+    g = torch.Generator(device=card).manual_seed(22)
+    bad = float("inf") if select_min else float("-inf")
+    for cols in (31, 300, 5003, 65536):
+        v = torch.randn(12, cols, generator=g, device=card)
+        v[1] = torch.sort(v[1]).values
+        v[2] = torch.sort(v[2], descending=True).values
+        v[3] = 0.5
+        v[4, ::3] = float("nan")
+        v[5, ::2] = float("inf")
+        v[6, ::2] = float("-inf")
+        v[7, : cols // 2] = bad                  # half the row never enters
+        v[8] = bad
+        v[8, cols // 3] = 1.0                    # one candidate
+        desc = torch.sort(v[9], descending=True).values
+        v[9] = torch.cat([desc[0::2], desc[1::2]])   # two descending runs
+        v[10] = torch.round(v[10])               # many ties
+        v[11, cols // 2:] = -v[11, : cols - cols // 2].abs() - 10
+        v = v.to(dtype)
+        for k in (1, 2, 31, 64, 65, 255, 256):
+            if k > cols:
+                continue
+            got = _counted("topk_insert", lambda: tti._topk_insert(
+                v, k, select_min))
+            want = tti._insert_plain(v, k, select_min)
+            assert torch.equal(got[1], want[1]), (cols, k)
+            assert torch.equal(got[0].view(torch.int32),
+                               want[0].view(torch.int32)), (cols, k)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("select_min", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
