@@ -61,9 +61,17 @@ into its argmin and its sums by kernel name from a ``torch.profiler``
 trace (every output bitwise
 equal on two argmin grids), its plan at BASELINE config 5's shape (not
 run), the fused top-k's split plan at the kNN shape (a ``topk_plan``
-line; worked out, not measured), a trace of k-means iterations (the card's busy time and idle
-share), and ``csr_spmv`` and ``csr_spmm`` on config 4 with and without
-its longest row (the hub row's share). Each
+line; worked out, not measured), radix_threshold's plan at the kNN
+chunks and the select shape (a ``radix_plan`` line; worked out, not
+measured), the instruction mix of each f32 ``unexpanded_tile`` kernel
+counted in its SASS (an ``unexpanded_sass`` line; no FFMA in l1, linf,
+hamming or l2un, no register spill, and a failure where the toolkit has
+no ``cuobjdump``), ``unexpanded_tile`` at every metric at the l1 kNN
+route's chunk (bitwise equal to its plain version but lp), the
+threshold at that chunk's keys and, at the l2 chunk, on rows of equal
+keys (the row's read alone), a trace of k-means iterations (the card's
+busy time and idle share), and ``csr_spmv`` and ``csr_spmm`` on config
+4 with and without its longest row (the hub row's share). Each
 phase prints one JSON line; the line before the last is the card's name
 and power limit from ``nvidia-smi``, the last is the result. Longer
 output (compiler logs, all numbers) goes to
@@ -74,10 +82,12 @@ result.
     python3 chip_smoke.py --fingerprint ROOT
 
 hashes the outputs of ``pairwise_tile``, ``fused_lloyd``, ``fused_topk``,
-``minonly`` and ``topk_insert`` on seeded inputs, and times them at the
-main paths' shapes, from the ``raft_tpu_torch`` package under ROOT: run
-on this checkout and on another commit's package in turns, it shows
-whether a change kept those kernels bit for bit, and their times.
+``minonly``, ``topk_insert``, ``unexpanded_tile``, ``radix_threshold``
+and ``radix_emit`` on seeded inputs, and of the kNN and select_k calls
+that run the radix kernels, and times them at the main paths' shapes,
+from the ``raft_tpu_torch`` package under ROOT: run on this checkout and
+on another commit's package in turns, it shows whether a change kept
+those kernels bit for bit, and their times.
 """
 
 import json
@@ -114,11 +124,15 @@ SPARSE_REL_F64 = 1e-12  # the same in f64; an f32 sum would miss by ~1e-7
 PLANTED_BLOCKS, PLANTED_EDGES, PLANTED_INSIDE = 4, 9_500_000, 0.98
 # unexpanded metrics: kernel vocabulary, those exact on integer inputs in
 # any summation order, and lane instructions per (i, j, c) element (a
-# subtract, then an add or max with |.| as a free modifier; canberra's IEEE
-# divide about 10 more; lp's powf about 20)
+# subtract, then an add or max with |.| as a free modifier; hamming a
+# compare and a predicated add; l2un a subtract, a multiply and an add,
+# three because bitwise parity with the plain version's separately rounded
+# d * d and acc + v forbids an FFMA; canberra's IEEE divide about 10 more;
+# lp's powf about 20)
 UNEXP_METRICS = ("l1", "linf", "canberra", "lp", "hamming", "l2un")
 UNEXP_EXACT = ("l1", "linf", "hamming")
-UNEXP_INSTR = {"l1": 2, "linf": 2, "hamming": 2, "l2un": 2, "canberra": 12,
+UNEXP_BITWISE = ("l1", "linf", "canberra", "hamming", "l2un")
+UNEXP_INSTR = {"l1": 2, "linf": 2, "hamming": 2, "l2un": 3, "canberra": 12,
                "lp": 22}
 UNEXP_K, UNEXP_Q = 64, 256                 # kNN k; linf/canberra queries
 # H100 SXM f32 lane-instruction issue rate: 132 SMs x 128 lanes x 1.98 GHz
@@ -988,6 +1002,7 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, v_asc, launches,
                     (trs._emit_plain(ckeys, ct, cn, ck),),
                     "radix_emit at the kNN chunk")
         pb, pby = bound("high", nq, cw, d, 4 * nq * cw)
+        zkeys = torch.zeros_like(ckeys)     # equal keys: the row's read alone
         knn_chunk = {
             "pairwise_tile": dict(
                 shape=[nq, cw, d], tier="high",
@@ -1002,6 +1017,8 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, v_asc, launches,
             "radix_threshold": dict(
                 shape=[nq, cw], k=ck,
                 ms=cuda_ms(lambda: trs._radix_threshold(ckeys, ck), 5),
+                all_equal_rows_ms=cuda_ms(lambda: trs._radix_threshold(
+                    zkeys, ck), 5),
                 plain_ms=cuda_ms(lambda: trs._threshold_plain(ckeys, ck), 3),
                 bound_ms=(4 * nq * cw + 8 * nq) / PEAK_BYTES * 1e3,
                 bound_by="bytes",
@@ -1016,7 +1033,7 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, v_asc, launches,
                 bound_by="bytes",
                 library_ms=cuda_ms(lambda: torch.topk(cd, ck, dim=1,
                                                       largest=False), 3))}
-        del xs, cys, cd, ckeys, ct, cn
+        del xs, cys, cd, ckeys, zkeys, ct, cn
         torch.cuda.empty_cache()
 
         # insertion select at the WARPSORT_FILTERED shape
@@ -1249,6 +1266,31 @@ def argmin_plan_phase(dev):
             ("main", (MAIN_M, MAIN_N)), ("candidates", (MAIN_M, CANDIDATES)),
             ("knn", (KNN_Q, KNN_N)),
             ("partition", (1 << RMAT_SCALE, PLANTED_BLOCKS)))})
+
+
+def radix_plan_phase():
+    """radix_threshold's plan (form, splits, span, candidate buffer, global
+    scratch and shared memory) at the shapes the paths give it: the kNN
+    radix routes' 4096 x 32,768 chunks, the 256-query linf / canberra
+    chunks and the select shape: worked out by the wrapper's planner from
+    the shapes, not measured."""
+    import torch
+
+    from raft_tpu_torch.matrix import radix_select as trs
+    from raft_tpu_torch.neighbors import knn_plan
+
+    shapes = {"knn_chunk": (KNN_Q, knn_plan(KNN_Q, KNN_N, KNN_KS[-1])[1]),
+              "knn_l1_chunk": (KNN_Q, knn_plan(KNN_Q, KNN_N, UNEXP_K,
+                                               "l1")[1]),
+              "knn_256_query_chunk": (UNEXP_Q, knn_plan(
+                  UNEXP_Q, KNN_N, UNEXP_K, "linf")[1]),
+              "select": SELECT_RADIX[:2]}
+    optin = trs._smem_optin(torch.device("cuda:0"))
+    emit("radix_plan", smem_optin=optin,
+         row_keys_max=trs._row_keys_max(optin), **{
+             what: dict(rows=r, cols=c,
+                        **trs._threshold_plan(r, c, optin)._asdict())
+             for what, (r, c) in shapes.items()})
 
 
 def cdist_argmin(x, y, rows=CDIST_ROWS):
@@ -2349,32 +2391,44 @@ def unexpanded_knn_phase(res, dev, db, q):
 
 def unexpanded_numbers(db, q, launches, parity_err):
     """unexpanded_tile's row at the l1 kNN route's chunk (4096 x 32,768 x
-    128, the first chunk of the path's own data): held against its plain
-    version there, timed beside it, beside torch.cdist(p=1) and beside
-    its bound; the other metrics' times at the same shape."""
+    128, the first chunk of the path's own data): every metric held
+    against its plain version there (bitwise for all but lp, lp within
+    1e-5 sqrt(k) of the value), timed beside its bound and, where one
+    call computes it, torch.cdist; the l1 row beside the plain version's
+    time. Then radix_threshold at that chunk's keys (k = 64), exactly
+    against its plain version and timed. Returns the row and the
+    threshold's numbers."""
     import torch
 
     from raft_tpu_torch import kernels
     from raft_tpu_torch.linalg import contractions as tc
+    from raft_tpu_torch.matrix import radix_select as trs
     from raft_tpu_torch.neighbors import knn_plan
 
     nq, d = q.shape
     cw = knn_plan(nq, KNN_N, UNEXP_K, "l1")[1]
     y = db[:cw].contiguous()
     with torch.no_grad():
-        got = tc._unexpanded_tile("l1", 2.0, q, y)
-        want = tc.unexpanded_ref(q, y, "l1")
-        e = (got - want).abs()
-        check(bool((e <= unexp_rel(d) * want + 1e-6).all()),
-              f"unexpanded_tile at the kNN chunk: max err {float(e.max())}")
-        err = float(e.max())
-        bitwise = torch.equal(got, want)
-        del got, want, e
-        per_metric = {}
+        per_metric, err = {}, 0.0
         for metric, instr in UNEXP_INSTR.items():
+            got = tc._unexpanded_tile(metric, 3.0, q, y)
+            want = tc.unexpanded_ref(q, y, metric, 3.0)
+            e = (got - want).abs()
+            check(bool((e <= unexp_rel(d) * want + 1e-6).all()),
+                  f"unexpanded_tile {metric} at the kNN chunk: max err "
+                  f"{float(e.max())}")
+            bitwise = torch.equal(got, want)
+            check(bitwise or metric not in UNEXP_BITWISE,
+                  f"unexpanded_tile {metric} at the kNN chunk: not bitwise "
+                  f"equal to its plain version")
+            err = max(err, float(e.max()))
+            if metric == "l1":
+                keys = trs._to_key(got, True).contiguous()
+            del got, want, e
             per_metric[metric] = dict(
                 ms=cuda_ms(lambda: tc._unexpanded_tile(metric, 3.0, q, y), 3),
-                bound_ms=unexp_bound(nq, cw, d, instr)[0])
+                bound_ms=unexp_bound(nq, cw, d, instr)[0],
+                bitwise_to_plain=bitwise)
         lib = {"l1": lambda: torch.cdist(q, y, p=1.0),
                "linf": lambda: torch.cdist(q, y, p=float("inf")),
                "l2un": lambda: torch.cdist(
@@ -2395,9 +2449,22 @@ def unexpanded_numbers(db, q, launches, parity_err):
                "library_ms": per_metric["l1"]["library_ms"],
                "library_call": "torch.cdist(x, y, p=1)", "parity": "pass",
                "shape": [nq, cw, d], "metric": "l1",
-               "bitwise_to_plain_at_this_shape": bitwise,
-               "instr_per_element": UNEXP_INSTR, "by_metric": per_metric}
-    return row
+               "bitwise_to_plain_at_this_shape": per_metric["l1"][
+                   "bitwise_to_plain"],
+               "by_metric": per_metric}
+        # the l1 route's radix_threshold, at the keys of this chunk
+        exact_equal(trs._radix_threshold(keys, UNEXP_K),
+                    trs._threshold_plain(keys, UNEXP_K),
+                    "radix_threshold at the l1 kNN chunk")
+        threshold = dict(
+            shape=[nq, cw], k=UNEXP_K,
+            ms=cuda_ms(lambda: trs._radix_threshold(keys, UNEXP_K), 5),
+            plain_ms=cuda_ms(lambda: trs._threshold_plain(keys, UNEXP_K), 3),
+            bound_ms=(4 * nq * cw + 8 * nq) / PEAK_BYTES * 1e3,
+            bound_by="bytes",
+            library_ms=cuda_ms(lambda: torch.kthvalue(keys, UNEXP_K, dim=1),
+                               3))
+    return row, threshold
 
 
 def unexp_bound(m, n, k, instr):
@@ -2656,16 +2723,63 @@ def hgmma_count(build, kernels, name):
     return count
 
 
+SASS_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "DADD",
+            "DMUL", "DFMA", "MUFU", "LDS.128", "LDS", "STL", "LDL",
+            "CALL")
+# an instruction's opcode in cuobjdump's listing, after any predicate
+SASS_OP = r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+
+
+def unexpanded_sass(build, kernels):
+    """The instruction mix of each f32 unexpanded_tile kernel (per metric,
+    16-byte and element staging), counted in the built library's SASS by
+    the toolkit's cuobjdump: l1, linf, hamming and l2un must hold no FFMA
+    (their terms and running sums are rounded apart, as the plain version
+    rounds them), and no kernel, f32 or f64, a local-memory access (a
+    register spill). Fails where the toolkit has no cuobjdump beside its
+    nvcc: the gate must run."""
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    check(cuobjdump.is_file(), f"unexpanded_tile SASS: no {cuobjdump}, so "
+          f"the FFMA and register-spill checks cannot run")
+    lib = build.library_path(kernels.REGISTRY["unexpanded_tile"])
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    mix = {}
+    for part in sass.split("Function : ")[1:]:
+        m = re.search(r"unexpanded_tile_kernelI([fd])Li(\d)ELb([01])E", part)
+        if not m:
+            continue
+        metric = UNEXP_METRICS[int(m.group(2))]
+        ops = re.findall(SASS_OP, part)
+        check(not any(o.startswith(("STL", "LDL")) for o in ops),
+              f"unexpanded_tile {metric} {m.group(1)}: register spills")
+        if m.group(1) != "f":
+            continue
+        count = {o: sum(1 for x in ops if x == o or (
+            x.startswith(o + ".") and o != "LDS")) for o in SASS_OPS}
+        count["all"] = len(ops)
+        mix[f"{metric} {'vec' if m.group(3) == '1' else 'scalar'}"] = count
+        if metric in ("l1", "linf", "hamming", "l2un"):
+            check(count["FFMA"] == 0, f"unexpanded_tile {metric}: FFMA in "
+                  f"the SASS contracts a term into the running sum")
+    check(len(mix) == 2 * len(UNEXP_METRICS),
+          f"unexpanded_tile SASS: found kernels {sorted(mix)}")
+    return mix
+
+
 def fingerprint(root):
     """``python3 chip_smoke.py --fingerprint ROOT``: pairwise_tile,
-    fused_lloyd, fused_topk, minonly and topk_insert on seeded inputs
-    from the raft_tpu_torch package under ROOT (this checkout, or another
-    commit's package unpacked beside it), each output hashed (SHA-256 of
-    its bytes) and timed at the main paths' shapes (topk_insert at the
+    fused_lloyd, fused_topk, minonly, topk_insert, unexpanded_tile,
+    radix_threshold and radix_emit on seeded inputs from the
+    raft_tpu_torch package under ROOT (this checkout, or another commit's
+    package unpacked beside it), each output hashed (SHA-256 of its
+    bytes) and timed at the main paths' shapes (topk_insert at the
     WARPSORT_FILTERED shape on random, descending and ascending rows, k =
-    64 and 256). Two packages whose hashes all agree give these kernels'
-    outputs bit for bit; run them in turns (A, B, B, A) in one call to
-    compare their times."""
+    64 and 256; unexpanded_tile and the radix kernels as
+    fingerprint_unexpanded and fingerprint_radix say), and the kNN and
+    select_k calls that run the radix kernels. Two packages whose hashes
+    all agree give these kernels' outputs bit for bit; run them in turns
+    (A, B, B, A) in one call to compare their times."""
     import hashlib
 
     sys.path.insert(0, os.path.abspath(root))
@@ -2739,6 +2853,10 @@ def fingerprint(root):
             at = f"topk_insert k={kk} {what}"
             hashes[at] = digest(tti._topk_insert(rows, kk, True))
             times[at] = cuda_ms(lambda: tti._topk_insert(rows, kk, True), 20)
+    del v, desc
+    torch.cuda.empty_cache()
+    fingerprint_unexpanded(gen, dev, digest, hashes, times)
+    fingerprint_radix(gen, dev, digest, hashes, times)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2746,6 +2864,143 @@ def fingerprint(root):
     print(json.dumps({"fingerprint": str(root), "device": smi,
                       "hashes": hashes, "ms": times}))
     return 0
+
+
+# the card test's ragged shapes of the unexpanded tile (m, n, k)
+UNEXP_RAGGED = ((130, 257, 129), (1, 5, 1), (129, 1, 3), (300, 70, 50),
+                (64, 128, 32), (257, 131, 128))
+
+
+def unexpanded_operands(gen, dev, dtype, m, n, k, layout):
+    """x [m, k], y [n, k]: contiguous, or views staged element by element
+    (x a row stride of k + 1, y a slice from an odd row and column 1);
+    exact matches, an inf and a NaN in x's last depth."""
+    import torch
+
+    if layout == "contiguous":
+        x = torch.randn(m, k, generator=gen, device=dev, dtype=dtype)
+        y = torch.randn(n, k, generator=gen, device=dev, dtype=dtype)
+    else:
+        x = torch.randn(m, k + 1, generator=gen, device=dev,
+                        dtype=dtype)[:, :k]
+        y = torch.randn(n + 3, k + 2, generator=gen, device=dev,
+                        dtype=dtype)[3:, 1:k + 1]
+    y[: n // 2, : k // 2] = x[0, : k // 2]
+    if n > 2:
+        y[-1, k // 3] = float("inf")
+    x[-1, -1] = float("nan")
+    return x, y
+
+
+def fingerprint_unexpanded(gen, dev, digest, hashes, times):
+    """unexpanded_tile in --fingerprint: every metric in f32 and f64 at the
+    card test's ragged shapes (both stagings) and at config 1's 5000 x 50,
+    hashed with NaN payloads made one (NaN positions kept); each metric
+    timed at config 1 and at the l1 kNN route's 4096 x 32,768 x 128 chunk,
+    l1's output there hashed."""
+    import torch
+
+    from raft_tpu_torch.linalg import contractions as tc
+
+    def canon(t):
+        return torch.where(torch.isnan(t), torch.full_like(t, float("nan")),
+                           t)
+
+    for dtype in (torch.float32, torch.float64):
+        for m, n, k in UNEXP_RAGGED:
+            for layout in ("contiguous", "strided"):
+                x, y = unexpanded_operands(gen, dev, dtype, m, n, k, layout)
+                for metric in UNEXP_METRICS:
+                    hashes[f"unexpanded_tile {metric} {dtype} {m}x{n}x{k} "
+                           f"{layout}"] = digest([canon(tc._unexpanded_tile(
+                               metric, 3.0, x, y))])
+        x5 = torch.randn(PAIRWISE_M, PAIRWISE_K, generator=gen, device=dev,
+                         dtype=dtype)
+        for metric in UNEXP_METRICS:
+            at = f"unexpanded_tile {metric} {dtype} config1"
+            hashes[at] = digest([canon(tc._unexpanded_tile(metric, 3.0, x5,
+                                                           x5))])
+            if dtype == torch.float32:
+                times[at] = cuda_ms(lambda: tc._unexpanded_tile(
+                    metric, 3.0, x5, x5), 10)
+    q = torch.randn(KNN_Q, KNN_D, generator=gen, device=dev)
+    y = torch.randn(32768, KNN_D, generator=gen, device=dev)
+    hashes["unexpanded_tile l1 knn chunk"] = digest(
+        [tc._unexpanded_tile("l1", 3.0, q, y)])
+    for metric in UNEXP_METRICS:
+        times[f"unexpanded_tile {metric} knn chunk"] = cuda_ms(
+            lambda: tc._unexpanded_tile(metric, 3.0, q, y),
+            1 if metric == "lp" else 3)
+    torch.cuda.empty_cache()
+
+
+def fingerprint_radix(gen, dev, digest, hashes, times):
+    """radix_threshold and radix_emit in --fingerprint: (T, n_tie) and the
+    winner columns hashed, and both timed, at the kNN radix route's chunk
+    (4096 x 32,768 keys of l2 distances at k = 1024, of l1 distances at
+    k = 64), the select shape (64 x 2^20, k = 2048), rows of ties and
+    all-equal rows on both sides of the row-resident limit; then the
+    paths that run them, timed and hashed: knn l1 at k = 64 and l2 at
+    k = 1024 (4096 queries), linf and canberra at 256 queries, select_k
+    AUTO at the select shape."""
+    import torch
+
+    from raft_tpu_torch import device_resources
+    from raft_tpu_torch.linalg import contractions as tc
+    from raft_tpu_torch.matrix import SelectAlgo, select_k
+    from raft_tpu_torch.matrix import radix_select as trs
+    from raft_tpu_torch.neighbors import knn
+    from raft_tpu_torch.util import precision as tprec
+
+    db = torch.randn(KNN_N, KNN_D, generator=gen, device=dev)
+    q = torch.randn(KNN_Q, KNN_D, generator=gen, device=dev)
+    chunk = db[:32768]
+    ties = torch.randn(8, 300001, generator=gen, device=dev)
+    ties[0, 50:150000] = -0.5
+    ties[1] = 2.0
+    short = torch.randn(512, 20000, generator=gen, device=dev)
+    short[::3, 100:9000] = 0.25
+    short[1::3] = -1.0
+    cases = (("knn chunk l2", trs._to_key(torch.cdist(q, chunk) ** 2, True),
+              KNN_KS[-1]),
+             ("knn chunk l1", trs._to_key(tc.unexpanded_ref(q, chunk, "l1"),
+                                          True), UNEXP_K),
+             ("select", trs._to_key(torch.randn(*SELECT_RADIX[:2],
+                                                generator=gen, device=dev),
+                                    True), SELECT_RADIX[2]),
+             ("ties stream", trs._to_key(ties, True), 120000),
+             ("ties row", trs._to_key(short, True), 4096))
+    for what, keys, k in cases:
+        t, ntie = trs._radix_threshold(keys, k)
+        hashes[f"radix_threshold {what}"] = digest([t, ntie])
+        hashes[f"radix_emit {what}"] = digest([trs._radix_emit(keys, t, ntie,
+                                                               k)])
+        times[f"radix_threshold {what}"] = cuda_ms(
+            lambda: trs._radix_threshold(keys, k), 10)
+        times[f"radix_emit {what}"] = cuda_ms(
+            lambda: trs._radix_emit(keys, t, ntie, k), 10)
+    del cases, keys, t, ntie
+    torch.cuda.empty_cache()
+    res = device_resources(dev, seed=SEED)
+    with tprec.scope("high"):
+        for what, qq, k, metric in (
+                ("l1 k=64", q, UNEXP_K, "l1"),
+                ("l2 k=1024", q, KNN_KS[-1], "l2"),
+                ("linf k=64 256 queries", q[:UNEXP_Q], UNEXP_K, "linf"),
+                ("canberra k=64 256 queries", q[:UNEXP_Q], UNEXP_K,
+                 "canberra")):
+            hashes[f"knn {what}"] = digest(list(knn(res, db, qq, k,
+                                                    metric=metric)))
+            times[f"knn {what}"] = cuda_ms(lambda: knn(res, db, qq, k,
+                                                       metric=metric), 2)
+    del db, q
+    v = torch.randn(*SELECT_RADIX[:2], generator=gen, device=dev)
+    hashes["select_k auto"] = digest(list(select_k(res, v, SELECT_RADIX[2],
+                                                   algo=SelectAlgo.AUTO)))
+    times["select_k auto"] = cuda_ms(lambda: select_k(
+        res, v, SELECT_RADIX[2], algo=SelectAlgo.AUTO), 5)
+    del v
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -2781,6 +3036,8 @@ def main():
              for name in ("pairwise_tile", "fused_argmin", "fused_lloyd",
                           "fused_topk", "minonly")}
     RECORD["build_logs"] = {n: b["log"] for n, b in built.items()}
+    emit("unexpanded_sass", f32_kernels=unexpanded_sass(build, kernels),
+         bound_instr_per_element=UNEXP_INSTR)
     ptxas = "\n".join(b["log"] for b in built.values())
     emit("build", seconds=time.perf_counter() - t0,
          kernels={n: round(b["seconds"], 2) for n, b in built.items()},
@@ -2797,6 +3054,7 @@ def main():
     lloyd_plan_phase(dev)
     topk_plan_phase(dev)
     argmin_plan_phase(dev)
+    radix_plan_phase()
     small_fit_matches_cpu(res, dev)
     pairwise_phase(res, dev)
     unexp_launches, unexp_err = unexpanded_pairwise_phase(res, dev)
@@ -2821,9 +3079,15 @@ def main():
     table += topk_table
     knn_unexp_launches, _ = unexpanded_knn_phase(res, dev, db, q)
     unexp_launches += knn_unexp_launches["unexpanded_tile"]
-    table.append(unexpanded_numbers(
+    for row in table:
+        if row["name"] in ("radix_threshold", "radix_emit"):
+            row["launches"] += knn_unexp_launches[row["name"]]
+    unexp_row, l1_threshold = unexpanded_numbers(
         db, q, {"unexpanded_tile": unexp_launches},
-        max(parity_errs["unexpanded_tile"], unexp_err)))
+        max(parity_errs["unexpanded_tile"], unexp_err))
+    table.append(unexp_row)
+    next(r for r in table if r["name"] == "radix_threshold")[
+        "knn_l1_chunk_shape"] = l1_threshold
     argmin_row = next(r for r in table if r["name"] == "fused_argmin")
     argmin_row["knn_shape"], probe_row = probe_phase(
         res, dev, db, q, parity_errs["minonly"], hgmma["minonly"])

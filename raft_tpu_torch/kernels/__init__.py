@@ -115,8 +115,9 @@ REGISTRY: Dict[str, KernelSpec] = {
             name="radix_threshold",
             source="csrc/radix_threshold.cu",
             symbol="raft_radix_threshold",
-            # keys, ld, rows, len, k, splits, hist, t, ntie, stream
-            argtypes=(_P, _L, _I, _I, _I, _I, _P, _P, _P, _P),
+            # keys, ld, rows, len, k, form, span, hist, cand, cap, t, ntie,
+            # stream
+            argtypes=(_P, _L, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P),
             plain="raft_tpu_torch.matrix.radix_select._threshold_plain",
             ports="raft_tpu/matrix/radix_select.py:_threshold_kernel",
             replaces="raft_tpu/matrix/radix_select.py:235",

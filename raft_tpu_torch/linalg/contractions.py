@@ -682,9 +682,9 @@ def pairwise_unexpanded_pallas(x, y, metric: str, p: float = 2.0,
     (the reference's kernel takes f64 as f32; its jnp path keeps f64).
 
     ``tm``, ``tn`` and ``kc`` are the reference's TPU tile knobs: they are
-    validated and choose nothing, since the kernel's 64 x 64 tile masks
-    ragged edges and needs no padding. CUDA kernel:
-    ``csrc/unexpanded_tile.cu``."""
+    validated and choose nothing, since the kernel's tile (64 x 128 in
+    f32, 64 x 64 in f64) masks ragged edges and needs no padding. CUDA
+    kernel: ``csrc/unexpanded_tile.cu``."""
     if metric not in UNEXPANDED_METRICS:
         raise ValueError(f"metric must be one of {UNEXPANDED_METRICS}")
     for name, v in (("tm", tm), ("tn", tn), ("kc", kc)):

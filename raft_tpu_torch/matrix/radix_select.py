@@ -11,11 +11,13 @@ tie quota n_tie)
 emit (winner columns)     csrc/radix_emit.cu         _emit_plain
 ========================  =========================  ==================
 
-The threshold is the reference's four most-significant-digit passes of
-8-bit histograms; the emission writes every key below T, then the first
-``n_tie`` keys equal to T, each run in column order. The values are then
-gathered and stably sorted by key (plain torch, as the reference does in
-XLA), so among equal values the lower column comes first.
+The threshold narrows the k-th key digit by digit from the top, as the
+reference's most-significant-digit passes do (11-bit digits here, in one
+of two forms that :func:`_threshold_plan` picks from the shapes); the
+emission writes every key below T, then the first ``n_tie`` keys equal
+to T, each run in column order. The values are then gathered and stably
+sorted by key (plain torch, as the reference does in XLA), so among
+equal values the lower column comes first.
 
 Key domain (:func:`_to_key`): floats map through the sign-magnitude
 fold (IEEE total order: ``-NaN < -inf``, ``+NaN > +inf``); integers
@@ -31,6 +33,7 @@ rows across blocks (:func:`_splits`) instead.
 
 from __future__ import annotations
 
+from collections import namedtuple
 from typing import Tuple
 
 import torch
@@ -47,8 +50,6 @@ CHUNK_LEN = 1 << 20
 MAX_LEN = 1 << 24
 MAX_K = 16384
 MIN_COLS = 8192
-NPASS = 4
-DIGIT_BITS = 8
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8,
            torch.int16, torch.int32, torch.uint8, torch.uint16, torch.uint32)
@@ -136,6 +137,65 @@ def _splits(rows: int, n_cols: int, chunk: int) -> int:
                       65535))
 
 
+# csrc/radix_threshold.cu's layout, which its constants kBins,
+# kStreamPasses, kScratchWords and kRowCand (kRowFixedBytes) state again:
+# 2,048-bin histograms (11-bit digits), the streaming form's three passes,
+# and the row-resident form's shared memory (histogram, 64 words of
+# scratch, a 2,048-key candidate buffer, then the row, up to 3 keys of
+# misalignment, in 16-byte groups) against the block's opt-in limit
+THRESHOLD_BINS = 2048
+THRESHOLD_PASSES = 3
+ROW_FIXED_BYTES = 4 * (THRESHOLD_BINS + 64 + 2048)
+MIN_CANDIDATES = 4096
+
+ThresholdPlan = namedtuple("ThresholdPlan", "form splits span cand_cap "
+                           "scratch_bytes smem_bytes")
+
+
+def _smem_optin(dev: torch.device) -> int:
+    """The shared memory a block of ``dev`` may opt in to, bytes."""
+    return torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
+
+def _row_keys_max(smem_optin: int) -> int:
+    """The longest row the row-resident form holds in ``smem_optin``
+    bytes of shared memory."""
+    return (smem_optin - ROW_FIXED_BYTES) // 4 - 3
+
+
+def _threshold_plan(rows: int, n_cols: int,
+                    smem_optin: int) -> ThresholdPlan:
+    """How csrc/radix_threshold.cu runs on ``rows`` rows of ``n_cols``
+    keys, from the shapes and a block's opt-in shared memory
+    (:func:`_smem_optin`):
+
+    - ``form`` ``"row"`` where a row fits in a block's shared memory
+      (``n_cols <=`` :func:`_row_keys_max`): a block a row reads it once
+      and runs every pass there; ``splits`` 1, no global scratch,
+      ``smem_bytes`` its shared memory;
+    - else ``"stream"``: ``splits`` blocks a row (enough for the card when
+      the rows are few, at least 4,096 keys each) over spans of ``span``
+      keys; a candidate buffer of ``cand_cap`` keys a row (a 16th of the
+      row, at least :data:`MIN_CANDIDATES`, a multiple of 4) that the
+      second pass fills where the first pass's bin fits, so the third
+      reads only it; ``scratch_bytes`` the histograms, counters and
+      buffers the wrapper allocates."""
+    if rows < 1 or n_cols < 1:
+        raise ValueError(f"bad threshold plan arguments rows={rows} "
+                         f"n_cols={n_cols}")
+    if n_cols <= _row_keys_max(smem_optin):
+        smem = ROW_FIXED_BYTES + 4 * round_up_to_multiple(n_cols + 3, 4)
+        return ThresholdPlan("row", 1, n_cols, 0, 0, smem)
+    splits = max(1, min(cdiv(TARGET_BLOCKS, rows), cdiv(n_cols, 4096),
+                        65535))
+    span = round_up_to_multiple(cdiv(n_cols, splits), 1024)
+    cap = round_up_to_multiple(min(n_cols, max(MIN_CANDIDATES,
+                                               n_cols // 16)), 4)
+    scratch = 4 * (THRESHOLD_PASSES * rows * THRESHOLD_BINS + rows
+                   + rows * cap)
+    return ThresholdPlan("stream", cdiv(n_cols, span), span, cap, scratch, 0)
+
+
 def _check_keys(keys: torch.Tensor, k: int):
     if (keys.dtype != torch.int32 or keys.dim() != 2
             or keys.stride(1) != 1):
@@ -154,13 +214,20 @@ def _radix_threshold(keys: torch.Tensor, k: int):
     if keys.device.type == "cpu":
         return _threshold_plain(keys, k)
     dev = keys.device
-    splits = _splits(rows, n, 4096)
-    hist = torch.empty((NPASS, rows, 256), dtype=torch.int32, device=dev)
+    plan = _threshold_plan(rows, n, _smem_optin(dev))
     t = torch.empty((rows,), dtype=torch.int32, device=dev)
     ntie = torch.empty((rows,), dtype=torch.int32, device=dev)
+    hist = cand = None
+    if plan.form == "stream":
+        hist = torch.empty((THRESHOLD_PASSES * rows * THRESHOLD_BINS
+                            + rows,), dtype=torch.int32, device=dev)
+        cand = torch.empty((rows, plan.cand_cap), dtype=torch.int32,
+                           device=dev)
     kernels.launch("radix_threshold", dev, keys.data_ptr(), keys.stride(0),
-                   rows, n, k, splits, hist.data_ptr(), t.data_ptr(),
-                   ntie.data_ptr())
+                   rows, n, k, int(plan.form == "row"), plan.span,
+                   None if hist is None else hist.data_ptr(),
+                   None if cand is None else cand.data_ptr(), plan.cand_cap,
+                   t.data_ptr(), ntie.data_ptr())
     return t, ntie
 
 

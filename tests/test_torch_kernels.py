@@ -438,6 +438,93 @@ def test_radix_kernels_match_plain_on_card(card, rows, cols):
         assert torch.equal(idx, trs._emit_plain(keys, pt, pntie, k))
 
 
+def _threshold_case(g, card, case):
+    """(keys, k values, wanted plan form) of one radix_threshold case:
+    int32 sortable keys, some rows as views with ld > len."""
+    limit = trs._row_keys_max(trs._smem_optin(card))
+    if case in ("row_limit", "stream_limit"):
+        n = limit if case == "row_limit" else limit + 1
+        v = torch.randn(5, n, generator=g, device=card)
+        v[1, 100:9000] = 0.25                      # a long tie run
+        keys = trs._to_key(v, True)
+        return keys, (1, 64, 1024, n), "row" if case == "row_limit" \
+            else "stream"
+    if case in ("ld_row", "ld_stream"):
+        n = 5003 if case == "ld_row" else 70001
+        wide = torch.randint(-2 ** 31, 2 ** 31 - 1, (7, n + 13),
+                             generator=g, device=card, dtype=torch.int32)
+        keys = wide[:, 5:5 + n]                    # ld > len, misaligned
+        return keys, (1, 333, n), "row" if n <= limit else "stream"
+    if case in ("low_digits_row", "low_digits_stream"):
+        # equal in the top 22 bits (two 11-bit digits), apart in the last
+        n = 30000 if case == "low_digits_row" else 200000
+        low = torch.randint(0, 1024, (4, n), generator=g, device=card,
+                            dtype=torch.int32)
+        keys = (low + 0x1234C00).to(torch.int32)
+        keys[2] = low[2] - 0x7654C00               # negative keys too
+        return keys, (1, 500, n), "row" if n <= limit else "stream"
+    if case in ("extremes_row", "extremes_stream"):
+        n = 4099 if case == "extremes_row" else 100003
+        v = torch.randn(6, n, generator=g, device=card)
+        v[0, ::3] = float("nan")
+        v[1, ::2] = -float("nan")
+        v[2, 1::5] = float("inf")
+        v[2, ::7] = -float("inf")
+        keys = trs._to_key(v, True)
+        keys[3, ::4] = -2 ** 31                    # INT32_MIN
+        keys[4, 1::3] = 2 ** 31 - 1                # INT32_MAX
+        keys[5, ::2] = -2 ** 31
+        keys[5, 1::2] = 2 ** 31 - 1
+        return keys, (1, 17, n // 2, n), "row" if n <= limit else "stream"
+    if case == "tiny":
+        # rows of 3 keys, a view from column 1: the scalar head and tail
+        # alone, no 16-byte group
+        wide = torch.randint(-5, 5, (6, 4), generator=g, device=card,
+                             dtype=torch.int32)
+        wide[0] = 7
+        return wide[:, 1:], (1, 2, 3), "row"
+    # survivors past the candidate buffer: all-equal rows and a tie run
+    # longer than the buffer in the first pass's bin
+    n = 300000
+    v = torch.randn(4, n, generator=g, device=card)
+    v[0] = 1.5
+    v[1, 1000:150000] = -0.5
+    v[2, :] = torch.round(v[2] * 2) / 2            # nine values, long runs
+    keys = trs._to_key(v, True)
+    return keys, (1, 4096, 120000, n), "stream"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["row_limit", "stream_limit", "ld_row",
+                                  "ld_stream", "low_digits_row",
+                                  "low_digits_stream", "extremes_row",
+                                  "extremes_stream", "overflow", "tiny"])
+def test_radix_threshold_forms_on_card(card, case):
+    """Both forms of radix_threshold (row-resident and streaming, as the
+    plan picks them) exactly against the plain version: rows on both
+    sides of the row-resident limit, ld > len at a misaligned start, keys
+    apart only in the last digit, INT32_MIN / INT32_MAX and NaN's keys,
+    survivors that overflow the candidate buffer, rows of three keys, k = 1
+    and k = len; two runs equal, and the emission exact on the result."""
+    g = torch.Generator(device=card).manual_seed(21)
+    keys, ks, form = _threshold_case(g, card, case)
+    rows, n = keys.shape
+    plan = trs._threshold_plan(rows, n, trs._smem_optin(keys.device))
+    assert plan.form == form
+    for k in ks:
+        t, ntie = _counted("radix_threshold",
+                           lambda: trs._radix_threshold(keys, k))
+        again = trs._radix_threshold(keys, k)
+        pt, pntie = trs._threshold_plain(keys, k)
+        assert torch.equal(t, pt) and torch.equal(ntie, pntie), (case, k)
+        assert torch.equal(t, again[0]) and torch.equal(ntie, again[1])
+        if case == "overflow" and k == 120000:
+            # row 1's threshold is its tie run: more keys than the buffer
+            assert int((keys[1] == t[1]).sum()) > plan.cand_cap
+        idx = trs._radix_emit(keys, t, ntie, k)
+        assert torch.equal(idx, trs._emit_plain(keys, pt, pntie, k))
+
+
 def _card_csr(card, dtype, n_rows=3000, n_cols=2500, hub=20000, pad=100):
     """A CSR on the card: rows of 0-20 entries (a third empty), one hub row
     of ``hub`` entries, and ``pad`` physical entries past indptr[-1] with
@@ -608,6 +695,69 @@ def test_unexpanded_tile_matches_plain_on_card(card, metric, dtype):
                          <= 1e-5 * k ** 0.5 * want.abs()[fin]).all())
         else:
             assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+def _unexpanded_operands(g, card, dtype, m, n, k, layout):
+    """x [m, k] and y [n, k] on the card: contiguous; rows from an odd
+    row of a contiguous buffer (16-byte aligned where k's row is); or
+    views whose staging must go element by element (x in a wider buffer
+    with a row stride of k + 1, y a slice from an odd row and column 1)."""
+    if layout == "contiguous":
+        x = torch.randn(m, k, generator=g, device=card, dtype=dtype)
+        y = torch.randn(n, k, generator=g, device=card, dtype=dtype)
+    elif layout == "row_slice":
+        x = torch.randn(m + 1, k, generator=g, device=card, dtype=dtype)[1:]
+        y = torch.randn(n + 3, k, generator=g, device=card, dtype=dtype)[3:]
+    else:
+        x = torch.randn(m, k + 1, generator=g, device=card,
+                        dtype=dtype)[:, :k]
+        y = torch.randn(n + 3, k + 2, generator=g, device=card,
+                        dtype=dtype)[3:, 1:k + 1]
+    y[: n // 2, : k // 2] = x[0, : k // 2]        # exact matches, 0/0
+    if n > 2:
+        y[-1, k // 3] = float("inf")
+    x[-1, -1] = float("nan")                      # NaN in the last depth
+    return x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("metric", ["l1", "linf", "canberra", "lp",
+                                    "hamming", "l2un"])
+def test_unexpanded_tile_edges_on_card(card, metric, dtype):
+    """The register-blocked tile at m and n off its block tile (64 x 128
+    in f32, 64 x 64 in f64), depths 1, 3, 50 and 129 (a partial last
+    chunk and a partial last 16-byte group), both stagings, which the
+    kernel picks from the operands' alignment (16-byte copies where both
+    start on a 16-byte boundary with row strides of 16-byte multiples, as
+    contiguous rows of k = 32 or 128 f32 do from any row; element by
+    element for k = 50 f32, a row stride of k + 1 and a slice from an odd
+    row and column), NaN in linf's last depth: bitwise equal to the plain
+    version (lp within 1e-5 sqrt(k) of the value) and two runs bitwise
+    equal."""
+    g = torch.Generator(device=card).manual_seed(22)
+    for m, n, k in ((130, 257, 129), (1, 5, 1), (129, 1, 3), (300, 70, 50),
+                    (64, 128, 32), (257, 131, 128)):
+        for layout in ("contiguous", "row_slice", "strided"):
+            x, y = _unexpanded_operands(g, card, dtype, m, n, k, layout)
+            got = _counted("unexpanded_tile", lambda: tc._unexpanded_tile(
+                metric, 3.0, x, y))
+            again = tc._unexpanded_tile(metric, 3.0, x, y)
+            want = tc.unexpanded_ref(x, y, metric, 3.0)
+            what = (metric, dtype, m, n, k, layout)
+            assert got.dtype == dtype and torch.equal(
+                got.view(torch.uint8), again.view(torch.uint8)), what
+            assert torch.equal(torch.isnan(got), torch.isnan(want)), what
+            if metric == "linf":
+                assert bool(torch.isnan(got[-1]).all()), what
+            if metric == "lp":
+                fin = torch.isfinite(want)
+                assert bool(((got - want).abs()[fin]
+                             <= 1e-5 * k ** 0.5 * want.abs()[fin]).all()), \
+                    what
+            else:
+                assert torch.equal(torch.nan_to_num(got),
+                                   torch.nan_to_num(want)), what
 
 
 @pytest.mark.cuda

@@ -13,6 +13,8 @@ from _torch_util import n, t
 from raft_tpu.matrix import radix_select as jrs
 from raft_tpu_torch.matrix import radix_select as trs
 
+# an H100's opt-in shared memory a block, bytes
+H100_SMEM_OPTIN = 232448
 DTYPES = ("float32", "bfloat16", "float16", "int8", "int16", "int32",
           "uint8", "uint16", "uint32")
 
@@ -124,3 +126,111 @@ def test_rejects_unsupported_problems():
         trs.radix_select_k(torch.zeros(2, 100), 200)
     with pytest.raises(ValueError):
         trs.radix_select_k(torch.zeros(2, 100, dtype=torch.float64), 5)
+
+
+@pytest.mark.parametrize("shape,form", [
+    ("knn_chunk", "row"), ("knn_l1_chunk", "row"), ("select", "stream"),
+    ("knn_256_queries", "stream"), ("merge_pool", "row"),
+    ("under_limit", "row"), ("at_limit", "row"), ("over_limit", "stream"),
+    ("one_key", "row"), ("many_short_rows", "row")])
+def test_threshold_plan_picks_the_form_from_the_shapes(shape, form):
+    """radix_threshold's plan: the row-resident form wherever a row fits
+    in a block's shared memory (both kNN radix routes' 4096 x 32,768
+    chunks, the two-level merge pool, rows up to _row_keys_max keys), the
+    streaming form past it (the select shape 64 x 2^20, the 256-query
+    linf/canberra chunks of 524,288 keys)."""
+    from raft_tpu_torch.neighbors import knn_plan
+
+    limit = trs._row_keys_max(H100_SMEM_OPTIN)
+    rows, n_cols = {
+        "knn_chunk": (4096, knn_plan(4096, 1 << 20, 1024)[1]),
+        "knn_l1_chunk": (4096, knn_plan(4096, 1 << 20, 64, "l1")[1]),
+        "select": (64, 1 << 20),
+        "knn_256_queries": (256, knn_plan(256, 1 << 20, 64, "linf")[1]),
+        "merge_pool": (64, 2 * 2048),
+        "under_limit": (3, limit - 1), "at_limit": (3, limit),
+        "over_limit": (3, limit + 1), "one_key": (1, 1),
+        "many_short_rows": (100000, 100)}[shape]
+    if shape.startswith("knn"):
+        assert n_cols == (32768 if shape != "knn_256_queries" else 524288)
+    plan = trs._threshold_plan(rows, n_cols, H100_SMEM_OPTIN)
+    assert plan.form == form
+    if form == "row":
+        assert (plan.splits, plan.cand_cap, plan.scratch_bytes) == (1, 0, 0)
+        assert plan.smem_bytes == trs.ROW_FIXED_BYTES + 4 * (
+            (n_cols + 3 + 3) // 4 * 4) <= H100_SMEM_OPTIN
+        return
+    assert plan.smem_bytes == 0 and plan.span % 1024 == 0
+    assert (plan.splits - 1) * plan.span < n_cols <= plan.splits * plan.span
+    assert rows * plan.splits >= min(trs.TARGET_BLOCKS,
+                                     rows * (n_cols // 4096))
+    assert plan.cand_cap % 4 == 0
+    assert min(n_cols, trs.MIN_CANDIDATES) <= plan.cand_cap <= n_cols + 3
+    assert plan.scratch_bytes == 4 * rows * (
+        trs.THRESHOLD_PASSES * trs.THRESHOLD_BINS + 1 + plan.cand_cap)
+
+
+def test_threshold_plan_row_limit_is_the_shared_memory_limit():
+    """_row_keys_max is the longest row whose shared memory (histogram,
+    scratch, the candidate buffer, the row with up to 3 keys of
+    misalignment in 16-byte groups) fits a block's opt-in limit; one key
+    more does not. On an H100 that is 53,949 keys, above the kNN radix
+    routes' 32,768-key chunks."""
+    def smem(n):
+        return trs.ROW_FIXED_BYTES + 4 * ((n + 3 + 3) // 4 * 4)
+
+    limit = trs._row_keys_max(H100_SMEM_OPTIN)
+    assert limit == 53949
+    assert smem(limit) <= H100_SMEM_OPTIN < smem(limit + 1)
+    with pytest.raises(ValueError):
+        trs._threshold_plan(0, 10, H100_SMEM_OPTIN)
+
+
+def _cu_constants(path):
+    """The namespace-scope ``constexpr int`` constants of a CUDA source,
+    evaluated in order (each may use the earlier ones)."""
+    import re
+    from pathlib import Path
+
+    env = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);",
+                                 Path(path).read_text(), re.M):
+        env[name] = eval(expr.replace(" / ", " // "), {}, dict(env))
+    return env
+
+
+@pytest.mark.parametrize("name,kernel_name", [
+    ("THRESHOLD_BINS", "kBins"), ("THRESHOLD_PASSES", "kStreamPasses"),
+    ("ROW_FIXED_BYTES", "kRowFixedBytes")])
+def test_threshold_layout_matches_the_kernel_source(name, kernel_name):
+    """The plan's copy of csrc/radix_threshold.cu's layout (histogram
+    bins, streaming passes, the row form's fixed shared memory) equals the
+    kernel's own constants, read from its source."""
+    from pathlib import Path
+
+    src = Path(trs.__file__).parent.parent / "csrc" / "radix_threshold.cu"
+    assert getattr(trs, name) == _cu_constants(src)[kernel_name]
+
+
+@pytest.mark.parametrize("case", ["random", "k1", "k_len", "all_equal",
+                                  "straddle"])
+def test_threshold_cpu_route_is_the_plain_version(case):
+    """On CPU keys the wrapper returns the plain threshold, whatever the
+    plan would pick on the card; a view with ld > len is taken as is."""
+    rng = np.random.default_rng(7)
+    wide = rng.normal(size=(3, 2100)).astype(np.float32)
+    k = {"k1": 1, "k_len": 2000}.get(case, 50)
+    if case == "all_equal":
+        wide[:] = -1.5
+    elif case == "straddle":
+        wide[:, 30:90] = -40.0
+    keys = trs._to_key(t(wide), True)[:, 100:2100]
+    assert keys.stride(0) == 2100
+    got = trs._radix_threshold(keys, k)
+    want = trs._threshold_plain(keys.contiguous(), k)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # T is the k-th smallest key; n_tie of its copies complete the k
+    srt = np.sort(n(keys), axis=1)
+    np.testing.assert_array_equal(n(got[0]), srt[:, k - 1])
+    below = (n(keys) < n(got[0])[:, None]).sum(1)
+    np.testing.assert_array_equal(n(got[1]), k - below)

@@ -192,3 +192,30 @@ def test_knn_unexpanded_matches_reference(metric, route):
         gap = abs(exact[r, got_i[r, c]] - exact[r, want_i[r, c]])
         assert gap <= _rel(8) * exact[r, want_i[r, c]], (r, c, gap)
     np.testing.assert_allclose(n(tv), np.asarray(jv), rtol=_rel(8))
+
+
+@pytest.mark.parametrize("layout", ["row_stride_k_plus_1",
+                                    "odd_row_and_column_slice"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_unexpanded_views_match_reference(metric, layout):
+    """Operands that are views, not contiguous rows (config 1's depth of
+    50 in a wider buffer, or a slice from an odd row and column): the
+    port's entry point and its tile wrapper give the reference's result
+    on the same values."""
+    m, nn, k = 13, 21, 50
+    x, y = _inputs(9, m, nn, k, integer=True)
+    wx = np.zeros((m + 1, k + 1), np.float32)
+    wy = np.zeros((nn + 3, k + 2), np.float32)
+    if layout == "row_stride_k_plus_1":
+        wx[:m, :k], wy[:nn, :k] = x, y
+        vx, vy = t(wx)[:m, :k], t(wy)[:nn, :k]
+    else:
+        wx[1:, 1:], wy[3:, 1:k + 1] = x, y
+        vx, vy = t(wx)[1:, 1:], t(wy)[3:, 1:k + 1]
+    assert not vx.is_contiguous() and not vy.is_contiguous()
+    p = 3.0 if metric == "lp" else 2.0
+    want = jc.pairwise_unexpanded_pallas(jnp.asarray(x), jnp.asarray(y),
+                                         metric, p)
+    got = tc.pairwise_unexpanded_pallas(vx, vy, metric, p)
+    _close(got, want, k, exact=metric in EXACT_ON_INTEGERS)
+    assert torch.equal(tc._unexpanded_tile(metric, p, vx, vy), got)
