@@ -61,15 +61,20 @@ into its argmin and its sums by kernel name from a ``torch.profiler``
 trace (every output bitwise
 equal on two argmin grids), its plan at BASELINE config 5's shape (not
 run), the fused top-k's split plan at the kNN shape (a ``topk_plan``
-line; worked out, not measured), radix_threshold's plan at the kNN
-chunks and the select shape (a ``radix_plan`` line; worked out, not
-measured), the instruction mix of each f32 ``unexpanded_tile`` kernel
+line; worked out, not measured), radix_threshold's and radix_emit's
+plans at the kNN chunks and the select shape (``radix_plan`` and
+``emit_plan`` lines; worked out, not measured), the instruction mix of each f32 ``unexpanded_tile`` kernel
 counted in its SASS (an ``unexpanded_sass`` line; no FFMA in l1, linf,
 hamming or l2un, no register spill, and a failure where the toolkit has
 no ``cuobjdump``), ``unexpanded_tile`` at every metric at the l1 kNN
 route's chunk (bitwise equal to its plain version but lp), the
-threshold at that chunk's keys and, at the l2 chunk, on rows of equal
-keys (the row's read alone), a trace of k-means iterations (the card's
+threshold and the emission at that chunk's keys (the emission also in
+its look-back form, which the plan leaves to fewer rows) and, at the l2
+chunk,
+the threshold on rows of equal keys (the row's read alone), the emission
+at the select shape on sorted and reverse-sorted rows, the MST E-stage's
+split (an ``mst_plan`` line) and its time at every Borůvka round, each
+round's triples held exactly against the plain version, a trace of k-means iterations (the card's
 busy time and idle share), and ``csr_spmv`` and ``csr_spmm`` on config
 4 with and without its longest row (the hub row's share). Each
 phase prints one JSON line; the line before the last is the card's name
@@ -82,9 +87,11 @@ result.
     python3 chip_smoke.py --fingerprint ROOT
 
 hashes the outputs of ``pairwise_tile``, ``fused_lloyd``, ``fused_topk``,
-``minonly``, ``topk_insert``, ``unexpanded_tile``, ``radix_threshold``
-and ``radix_emit`` on seeded inputs, and of the kNN and select_k calls
-that run the radix kernels, and times them at the main paths' shapes,
+``minonly``, ``topk_insert``, ``unexpanded_tile``, ``radix_threshold``,
+``radix_emit``, ``csr_spmv`` and ``mst_min_edge`` on seeded inputs, and
+of the kNN,
+select_k and mst calls that run the radix and MST kernels, and times
+them at the main paths' shapes,
 from the ``raft_tpu_torch`` package under ROOT: run on this checkout and
 on another commit's package in turns, it shows whether a change kept
 those kernels bit for bit, and their times.
@@ -998,9 +1005,12 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, v_asc, launches,
         ct, cn = trs._radix_threshold(ckeys, ck)
         exact_equal((ct, cn), trs._threshold_plain(ckeys, ck),
                     "radix_threshold at the kNN chunk")
-        exact_equal((trs._radix_emit(ckeys, ct, cn, ck),),
-                    (trs._emit_plain(ckeys, ct, cn, ck),),
+        want = (trs._emit_plain(ckeys, ct, cn, ck),)
+        exact_equal((trs._radix_emit(ckeys, ct, cn, ck),), want,
                     "radix_emit at the kNN chunk")
+        exact_equal((emit_lookback(ckeys, ct, cn, ck),), want,
+                    "radix_emit's look-back form at the kNN chunk")
+        del want
         pb, pby = bound("high", nq, cw, d, 4 * nq * cw)
         zkeys = torch.zeros_like(ckeys)     # equal keys: the row's read alone
         knn_chunk = {
@@ -1025,8 +1035,10 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, v_asc, launches,
                 library_ms=cuda_ms(lambda: torch.kthvalue(ckeys, ck, dim=1),
                                    3)),
             "radix_emit": dict(
-                shape=[nq, cw], k=ck,
+                shape=[nq, cw], k=ck, form=trs._emit_plan(nq, cw).form,
                 ms=cuda_ms(lambda: trs._radix_emit(ckeys, ct, cn, ck), 5),
+                lookback_ms=cuda_ms(lambda: emit_lookback(ckeys, ct, cn, ck),
+                                    5),
                 plain_ms=cuda_ms(lambda: trs._emit_plain(ckeys, ct, cn, ck),
                                  3),
                 bound_ms=(4 * nq * cw + 4 * nq * ck) / PEAK_BYTES * 1e3,
@@ -1077,6 +1089,19 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, v_asc, launches,
             cuda_ms(lambda: torch.kthvalue(keys, rk, dim=1), 3),
             "torch.kthvalue(keys, k, dim=1)", 0.0, shape=[rr, rc], k=rk,
             knn_chunk_shape=knn_chunk["radix_threshold"])
+        # sorted and reverse-sorted rows: every winner in the first or the
+        # last split of a row
+        ordered = {}
+        for what, desc in (("sorted", False), ("reversed", True)):
+            okeys = trs._to_key(torch.sort(v_radix, dim=1,
+                                           descending=desc).values, True)
+            ot, on = trs._radix_threshold(okeys, rk)
+            exact_equal((trs._radix_emit(okeys, ot, on, rk),),
+                        (trs._emit_plain(okeys, ot, on, rk),),
+                        f"radix_emit at the select shape, {what} rows")
+            ordered[f"{what}_rows_ms"] = cuda_ms(
+                lambda: trs._radix_emit(okeys, ot, on, rk), 5)
+            del okeys, ot, on
         row("radix_emit", cuda_ms(lambda: trs._radix_emit(keys, t, ntie, rk),
                                   5),
             cuda_ms(lambda: trs._emit_plain(keys, t, ntie, rk), 3),
@@ -1084,8 +1109,31 @@ def topk_numbers(db, q, v_radix, v_ins, v_desc, v_asc, launches,
             cuda_ms(lambda: torch.topk(v_radix, rk, largest=False), 3),
             "torch.topk(v, k, largest=False): threshold and emission "
             "together", 0.0, shape=[rr, rc], k=rk,
+            form=trs._emit_plan(rr, rc).form, **ordered,
             knn_chunk_shape=knn_chunk["radix_emit"])
     return table, knn_chunk["pairwise_tile"]
+
+
+def emit_lookback(keys, t, ntie, k):
+    """radix_emit's look-back form on keys where the plan picks the walk
+    (a split a chunk of EMIT_CHUNK keys, as at the select shape): the
+    number that keeps the walk, timed beside it at the kNN chunks and
+    held to the plain version there. Its launches count in no path's
+    row."""
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.matrix import radix_select as trs
+
+    rows, n = keys.shape
+    splits = -(-n // trs.EMIT_CHUNK)
+    scratch = torch.empty(8 * rows * splits + 4 * rows, dtype=torch.uint8,
+                          device=keys.device)
+    out = torch.empty((rows, k), dtype=torch.int32, device=keys.device)
+    kernels.launch("radix_emit", keys.device, keys.data_ptr(),
+                   keys.stride(0), rows, n, k, t.data_ptr(), ntie.data_ptr(),
+                   splits, scratch.data_ptr(), out.data_ptr())
+    return out
 
 
 def knn_k_sweep(db, q):
@@ -1270,10 +1318,11 @@ def argmin_plan_phase(dev):
 
 def radix_plan_phase():
     """radix_threshold's plan (form, splits, span, candidate buffer, global
-    scratch and shared memory) at the shapes the paths give it: the kNN
-    radix routes' 4096 x 32,768 chunks, the 256-query linf / canberra
-    chunks and the select shape: worked out by the wrapper's planner from
-    the shapes, not measured."""
+    scratch and shared memory; a ``radix_plan`` line) and radix_emit's
+    (form, splits, span, scratch; an ``emit_plan`` line) at the shapes the
+    paths give them: the kNN radix routes' 4096 x 32,768 chunks, the
+    256-query linf / canberra chunks and the select shape: worked out by
+    the wrappers' planners from the shapes, not measured."""
     import torch
 
     from raft_tpu_torch.matrix import radix_select as trs
@@ -1290,6 +1339,10 @@ def radix_plan_phase():
          row_keys_max=trs._row_keys_max(optin), **{
              what: dict(rows=r, cols=c,
                         **trs._threshold_plan(r, c, optin)._asdict())
+             for what, (r, c) in shapes.items()})
+    emit("emit_plan", chunk=trs.EMIT_CHUNK,
+         target_blocks=trs.TARGET_BLOCKS, **{
+             what: dict(rows=r, cols=c, **trs._emit_plan(r, c)._asdict())
              for what, (r, c) in shapes.items()})
 
 
@@ -2464,7 +2517,28 @@ def unexpanded_numbers(db, q, launches, parity_err):
             bound_by="bytes",
             library_ms=cuda_ms(lambda: torch.kthvalue(keys, UNEXP_K, dim=1),
                                3))
-    return row, threshold
+        # and its radix_emit
+        t, ntie = trs._radix_threshold(keys, UNEXP_K)
+        want = (trs._emit_plain(keys, t, ntie, UNEXP_K),)
+        exact_equal((trs._radix_emit(keys, t, ntie, UNEXP_K),), want,
+                    "radix_emit at the l1 kNN chunk")
+        exact_equal((emit_lookback(keys, t, ntie, UNEXP_K),), want,
+                    "radix_emit's look-back form at the l1 kNN chunk")
+        del want
+        emit_l1 = dict(
+            shape=[nq, cw], k=UNEXP_K,
+            form=trs._emit_plan(nq, cw).form,
+            ms=cuda_ms(lambda: trs._radix_emit(keys, t, ntie, UNEXP_K), 5),
+            lookback_ms=cuda_ms(lambda: emit_lookback(keys, t, ntie,
+                                                      UNEXP_K), 5),
+            plain_ms=cuda_ms(lambda: trs._emit_plain(keys, t, ntie, UNEXP_K),
+                             3),
+            bound_ms=(4 * nq * cw + 4 * nq * UNEXP_K) / PEAK_BYTES * 1e3,
+            bound_by="bytes",
+            library_ms=cuda_ms(lambda: torch.topk(keys, UNEXP_K, dim=1,
+                                                  largest=False), 3),
+            library_call="torch.topk(keys, k, largest=False)")
+    return row, threshold, emit_l1
 
 
 def unexp_bound(m, n, k, instr):
@@ -2495,6 +2569,7 @@ def mst_phase(res, dev):
 
     from raft_tpu_torch import kernels
     from raft_tpu_torch.random import RngState, rmat_rectangular_gen
+    from raft_tpu_torch.sparse import grid_spmv as tgs
     from raft_tpu_torch.sparse.solver import mst
     from raft_tpu_torch.sparse.solver import mst_grid as tmg
 
@@ -2530,17 +2605,35 @@ def mst_phase(res, dev):
     # then the host poll, with CUDA events around each part
     plan = tmg.prepare_mst(g)
     c = torch.arange(n, dtype=torch.int32, device=dev)
-    per_round = []
+    lengths = (plan.indptr[1:] - plan.indptr[:-1]).long()
+    emit("mst_plan", n_rows=n, entries=plan.indices.numel(),
+         chunk=tgs.SPMV_SEG, lanes=plan.lanes,
+         chunks=plan.owners.numel(),
+         tail_chunks=int((plan.owners >= 0).sum()),
+         long_rows=int((lengths > tgs.SPMV_SEG).sum()),
+         longest_row=int(lengths.max()),
+         longest_row_chunks=-(-int(lengths.max()) // tgs.SPMV_SEG))
+    per_round, round_ms = [], []
     for _ in range(rounds):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
         vmin = tmg._min_edge(plan, c)
         ev[1].record()
-        c, _, _, n_incl = tmst._color_stage(c, plan, n, *vmin)
+        c_next, _, _, n_incl = tmst._color_stage(c, plan, n, *vmin)
         ev[2].record()
         int(n_incl)
         per_round.append((ev[0].elapsed_time(ev[1]),
                           ev[1].elapsed_time(ev[2])))
+        # the kernel at this round's coloring: exactly the plain version,
+        # and timed alone
+        want = tmg._min_edge_plain(plan.indptr, plan.indices, plan.data, c,
+                                   plan.n_cols, n)
+        check(all(torch.equal(a, b) for a, b in zip(vmin, want)),
+              f"mst_min_edge at round {len(round_ms)}: kernel differs from "
+              f"plain")
+        round_ms.append(cuda_ms(lambda: tmg._min_edge(plan, c), 10))
+        c = c_next
+        del want
     k_ms = sum(a for a, _ in per_round)
     v_ms = sum(b for _, b in per_round)
 
@@ -2570,7 +2663,8 @@ def mst_phase(res, dev):
     out = dict(graph=stats, build_s=build_s, rounds=rounds, host_polls=rounds,
                wall_s=wall, ms=call_ms,
                kernel_ms_total=k_ms, v_stage_ms_total=v_ms,
-               per_round_kernel_v_ms=per_round, forest_edges=half,
+               per_round_kernel_v_ms=per_round,
+               per_round_kernel_alone_ms=round_ms, forest_edges=half,
                components=n_comp, total_weight=total,
                scipy_total_weight=ref_total, scipy_s=scipy_s,
                plain_e_stage_round_ms=plain_round_ms,
@@ -2579,9 +2673,10 @@ def mst_phase(res, dev):
     return g, plan, launches, out
 
 
-def mst_numbers(plan, launches):
+def mst_numbers(plan, launches, round_ms):
     """mst_min_edge's row at the MST graph's first round (every vertex its
-    own color): kernel, plain version and bound; no library call
+    own color): kernel, plain version and bound, beside the kernel's time
+    at every round (``round_ms``, from mst_phase); no library call
     computes it."""
     import torch
 
@@ -2595,9 +2690,12 @@ def mst_numbers(plan, launches):
                                plan.n_cols, n)
     check(all(torch.equal(a, b) for a, b in zip(got, want)),
           "mst_min_edge at the MST graph: kernel differs from plain")
-    idx_bytes = plan.indptr.element_size()
-    nbytes = (nnz * (4 + 4 + 4) + (n + 1) * idx_bytes + 4 * n
-              + n * (4 + 8 + 4))
+    # HBM bytes: indices and weights once each, indptr and colors once;
+    # the triples written once. An entry's color comes from L2 (colors is
+    # 4 n bytes), so it adds none.
+    idx_bytes, w_bytes = plan.indptr.element_size(), plan.data.element_size()
+    nbytes = (nnz * (4 + w_bytes) + (n + 1) * idx_bytes + 4 * n
+              + n * (w_bytes + 8 + 4))
     ms = cuda_ms(lambda: tmg._min_edge(plan, c), 20)
     spec = kernels.REGISTRY["mst_min_edge"]
     return {"name": "mst_min_edge", "route": "cuda",
@@ -2609,7 +2707,7 @@ def mst_numbers(plan, launches):
             "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
             "library_ms": None, "library_call": "none", "parity": "pass",
             "shape": [n, n], "nnz": nnz, "bytes": nbytes,
-            "achieved_gb_s": nbytes / ms / 1e6}
+            "achieved_gb_s": nbytes / ms / 1e6, "per_round_ms": round_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -2770,14 +2868,16 @@ def unexpanded_sass(build, kernels):
 def fingerprint(root):
     """``python3 chip_smoke.py --fingerprint ROOT``: pairwise_tile,
     fused_lloyd, fused_topk, minonly, topk_insert, unexpanded_tile,
-    radix_threshold and radix_emit on seeded inputs from the
+    radix_threshold, radix_emit, csr_spmv and mst_min_edge on seeded
+    inputs from the
     raft_tpu_torch package under ROOT (this checkout, or another commit's
     package unpacked beside it), each output hashed (SHA-256 of its
     bytes) and timed at the main paths' shapes (topk_insert at the
     WARPSORT_FILTERED shape on random, descending and ascending rows, k =
-    64 and 256; unexpanded_tile and the radix kernels as
-    fingerprint_unexpanded and fingerprint_radix say), and the kNN and
-    select_k calls that run the radix kernels. Two packages whose hashes
+    64 and 256; unexpanded_tile, the radix kernels, csr_spmv and
+    mst_min_edge as fingerprint_unexpanded, fingerprint_radix,
+    fingerprint_spmv and fingerprint_mst say),
+    and the kNN, select_k and mst calls that run them. Two packages whose hashes
     all agree give these kernels' outputs bit for bit; run them in turns
     (A, B, B, A) in one call to compare their times."""
     import hashlib
@@ -2857,6 +2957,8 @@ def fingerprint(root):
     torch.cuda.empty_cache()
     fingerprint_unexpanded(gen, dev, digest, hashes, times)
     fingerprint_radix(gen, dev, digest, hashes, times)
+    fingerprint_spmv(gen, dev, digest, hashes, times)
+    fingerprint_mst(gen, dev, digest, hashes, times)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2938,8 +3040,9 @@ def fingerprint_radix(gen, dev, digest, hashes, times):
     """radix_threshold and radix_emit in --fingerprint: (T, n_tie) and the
     winner columns hashed, and both timed, at the kNN radix route's chunk
     (4096 x 32,768 keys of l2 distances at k = 1024, of l1 distances at
-    k = 64), the select shape (64 x 2^20, k = 2048), rows of ties and
-    all-equal rows on both sides of the row-resident limit; then the
+    k = 64), the select shape (64 x 2^20, k = 2048; random, sorted and
+    reverse-sorted rows), rows of ties and all-equal rows on both sides of
+    the row-resident limit, a view with an odd row stride; then the
     paths that run them, timed and hashed: knn l1 at k = 64 and l2 at
     k = 1024 (4096 queries), linf and canberra at 256 queries, select_k
     AUTO at the select shape."""
@@ -2961,15 +3064,19 @@ def fingerprint_radix(gen, dev, digest, hashes, times):
     short = torch.randn(512, 20000, generator=gen, device=dev)
     short[::3, 100:9000] = 0.25
     short[1::3] = -1.0
+    sel = torch.randn(*SELECT_RADIX[:2], generator=gen, device=dev)
     cases = (("knn chunk l2", trs._to_key(torch.cdist(q, chunk) ** 2, True),
               KNN_KS[-1]),
              ("knn chunk l1", trs._to_key(tc.unexpanded_ref(q, chunk, "l1"),
                                           True), UNEXP_K),
-             ("select", trs._to_key(torch.randn(*SELECT_RADIX[:2],
-                                                generator=gen, device=dev),
-                                    True), SELECT_RADIX[2]),
+             ("select", trs._to_key(sel, True), SELECT_RADIX[2]),
              ("ties stream", trs._to_key(ties, True), 120000),
-             ("ties row", trs._to_key(short, True), 4096))
+             ("ties row", trs._to_key(short, True), 4096),
+             ("select sorted", trs._to_key(torch.sort(sel, 1).values, True),
+              SELECT_RADIX[2]),
+             ("select reversed", trs._to_key(torch.sort(
+                 sel, 1, descending=True).values, True), SELECT_RADIX[2]),
+             ("odd stride", trs._to_key(ties, True)[:, 1:-2], 5000))
     for what, keys, k in cases:
         t, ntie = trs._radix_threshold(keys, k)
         hashes[f"radix_threshold {what}"] = digest([t, ntie])
@@ -2979,7 +3086,7 @@ def fingerprint_radix(gen, dev, digest, hashes, times):
             lambda: trs._radix_threshold(keys, k), 10)
         times[f"radix_emit {what}"] = cuda_ms(
             lambda: trs._radix_emit(keys, t, ntie, k), 10)
-    del cases, keys, t, ntie
+    del cases, keys, t, ntie, sel
     torch.cuda.empty_cache()
     res = device_resources(dev, seed=SEED)
     with tprec.scope("high"):
@@ -3000,6 +3107,97 @@ def fingerprint_radix(gen, dev, digest, hashes, times):
     times["select_k auto"] = cuda_ms(lambda: select_k(
         res, v, SELECT_RADIX[2], algo=SelectAlgo.AUTO), 5)
     del v
+    torch.cuda.empty_cache()
+
+
+def fingerprint_spmv(gen, dev, digest, hashes, times):
+    """csr_spmv in --fingerprint: y hashed on the parity phase's hub graph
+    (a 100,000-entry hub row, NaN pads, f32 and f64, int32 and int64
+    indptr), then hashed and timed on BASELINE config 4's graph (built as
+    config4_phase builds it)."""
+    import torch
+
+    from raft_tpu_torch import device_resources
+    from raft_tpu_torch.random import RngState, rmat_rectangular_gen
+    from raft_tpu_torch.sparse import grid_spmv as tg
+
+    n = 20000
+    for dtype in (torch.float32, torch.float64):
+        indptr, indices, data = make_csr(gen, dev, n, n, max_len=40,
+                                         hubs=[(7, 100000)], pad=5000,
+                                         dtype=dtype)
+        x = torch.randn(n, generator=gen, device=dev, dtype=dtype)
+        for idx in (torch.int32, torch.int64):
+            hashes[f"csr_spmv hub {dtype} {idx}"] = digest([tg._spmv(
+                indptr.to(idx), indices, data, x, n)])
+    res = device_resources(dev, seed=SEED)
+    src, dst = rmat_rectangular_gen(res, RngState(SEED + 9), RMAT_SCALE,
+                                    RMAT_SCALE, RMAT_EDGES)
+    g = csr_from_edges(src, dst, 1 << RMAT_SCALE)
+    del src, dst
+    x = torch.randn(g.n_rows, generator=gen, device=dev)
+    ops = (g.indptr, g.indices, g.data, x, g.n_rows,
+           tg._spmv_owners(g.indptr, g.indices.numel()))
+    hashes["csr_spmv config 4"] = digest([tg._spmv(*ops)])
+    times["csr_spmv config 4"] = cuda_ms(lambda: tg._spmv(*ops), 20)
+    del g, ops
+    torch.cuda.empty_cache()
+
+
+def fingerprint_mst(gen, dev, digest, hashes, times):
+    """mst_min_edge in --fingerprint: its triples hashed on the parity
+    phase's hub graph (a 100,000-entry hub row, NaN pads, f32 and f64,
+    int32 and int64 indptr, two colorings), then on the MST path's graph
+    (bench_mst's R-MAT, built as mst_phase builds it) at every Borůvka
+    round, each round timed; the mst call's forest and final colors hashed
+    and the call timed."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import device_resources
+    from raft_tpu_torch.random import RngState, rmat_rectangular_gen
+    from raft_tpu_torch.sparse.solver import mst_grid as tmg
+
+    tmst = importlib.import_module("raft_tpu_torch.sparse.solver.mst")
+    n = 20000
+    for dtype in (torch.float32, torch.float64):
+        indptr, indices, data = make_csr(gen, dev, n, n, max_len=40,
+                                         hubs=[(7, 100000)], pad=5000,
+                                         dtype=dtype)
+        colorings = (torch.arange(n, device=dev),
+                     torch.randint(0, 50, (n,), generator=gen, device=dev))
+        for idx in (torch.int32, torch.int64):
+            plan = tmg.MSTPlan(indptr=indptr.to(idx), indices=indices,
+                               data=data.abs() + 0.01, n=n, n_cols=n,
+                               n_edges=int(indptr[-1]))
+            for i, colors in enumerate(colorings):
+                hashes[f"mst_min_edge hub {dtype} {idx} coloring {i}"] = \
+                    digest(tmg._min_edge(plan, colors.to(torch.int32)))
+    res = device_resources(dev, seed=SEED)
+    src, dst = rmat_rectangular_gen(res, RngState(SEED + 17), RMAT_SCALE,
+                                    RMAT_SCALE, RMAT_EDGES)
+    wgen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    w = torch.rand(src.shape[0], generator=wgen, device=dev) + 0.01
+    g = csr_from_edges(src, dst, 1 << RMAT_SCALE, w)
+    del src, dst, w
+    plan = tmg.prepare_mst(g)
+    c = torch.arange(plan.n, dtype=torch.int32, device=dev)
+    for i in range(64):
+        trip = tmg._min_edge(plan, c)
+        hashes[f"mst_min_edge round {i}"] = digest(trip)
+        times[f"mst_min_edge round {i}"] = cuda_ms(
+            lambda: tmg._min_edge(plan, c), 10)
+        c, _, _, n_incl = tmst._color_stage(c, plan, plan.n, *trip)
+        if not int(n_incl):
+            break
+    colors = np.arange(plan.n, dtype=np.int32)
+    forest = tmst.mst(res, g, color=colors)
+    hashes["mst forest and colors"] = digest(
+        [forest.src, forest.dst, forest.weights, torch.from_numpy(colors)])
+    times["mst call"] = cuda_ms(lambda: tmst.mst(res, g), 3)
+    del g, plan, forest
     torch.cuda.empty_cache()
 
 
@@ -3082,12 +3280,14 @@ def main():
     for row in table:
         if row["name"] in ("radix_threshold", "radix_emit"):
             row["launches"] += knn_unexp_launches[row["name"]]
-    unexp_row, l1_threshold = unexpanded_numbers(
+    unexp_row, l1_threshold, l1_emit = unexpanded_numbers(
         db, q, {"unexpanded_tile": unexp_launches},
         max(parity_errs["unexpanded_tile"], unexp_err))
     table.append(unexp_row)
     next(r for r in table if r["name"] == "radix_threshold")[
         "knn_l1_chunk_shape"] = l1_threshold
+    next(r for r in table if r["name"] == "radix_emit")[
+        "knn_l1_chunk_shape"] = l1_emit
     argmin_row = next(r for r in table if r["name"] == "fused_argmin")
     argmin_row["knn_shape"], probe_row = probe_phase(
         res, dev, db, q, parity_errs["minonly"], hgmma["minonly"])
@@ -3106,8 +3306,9 @@ def main():
         for n in sparse_launches})
     del g, x, b16
     torch.cuda.empty_cache()
-    _, mst_plan, mst_launches, _ = mst_phase(res, dev)
-    table.append(mst_numbers(mst_plan, mst_launches))
+    _, mst_plan, mst_launches, mst_out = mst_phase(res, dev)
+    table.append(mst_numbers(mst_plan, mst_launches,
+                             mst_out["per_round_kernel_alone_ms"]))
     check(len(table) == len(kernels.REGISTRY)
           and {r["name"] for r in table} == set(kernels.REGISTRY),
           "the kernels line does not list every registered kernel")

@@ -14,26 +14,32 @@
 // a select tree and order undirected edges by a host-built rank array,
 // because Mosaic's gathers are lane-local. The rank is the position of the
 // canonical pair in sorted order, so comparing the int64 key gives the same
-// order with no host pass; a CUDA warp reads colors[u] and colors[v]
+// order with no host pass; the kernel reads colors[u] and colors[v]
 // straight from the CSR arrays.
 //
 // Bound on an H100 SXM: bytes. Each entry's index and weight are read
-// once, its color gathered once (mostly from L2), indptr and colors once a
-// row, the three outputs written once. Design: one warp a row, as in
-// csr_spmv.cu. Lanes stride the row's entries, four at a time with their
-// loads in flight together, each keeping its own minimum; the warp reduces
-// the 32 triples by shuffles. A min under a strict total order is exact and
-// order-free, so the result is bitwise repeatable. Entries past
-// indptr[n_rows] (a bucketed CSR's pads) are never read. A hub row is one
-// warp's serial walk, as in csr_spmv.cu.
+// once, indptr and colors once a row, the three outputs written once; an
+// entry's color is gathered from L2 (colors is 4 MB at 2^20 rows), so it
+// adds no HBM traffic.
+//
+// Design: csr_split.cuh's split of the work, shared with csr_spmv.cu, with
+// the lexicographic minimum as the fold: lane groups take short rows and
+// long rows' heads (the wrapper sizes lpe for the mean row, as
+// csr_spmv's), chunk warps the tails named by the plan (grid_spmv.
+// _spmv_owners, once per graph on MSTPlan), so a hub row's tail spreads
+// over many warps beside the short rows, and the fix-up folds a tail's
+// partials into its row's triple. A lane keeps an entry's index, weight
+// and color loads in flight with those of the next three (row groups) or
+// seven (chunk warps). A minimum under a strict total order is exact in
+// any order, so the triples are bitwise those of any other walk.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "csr_split.cuh"
+
 namespace raft_port {
 
-constexpr int kMstWarp = 32;
-constexpr int kMstThreads = 256;                   // 8 rows a block
 constexpr int64_t kKeyMax = 0x7fffffffffffffffLL;
 constexpr int kEidMax = 0x7fffffff;
 
@@ -52,113 +58,130 @@ __device__ __forceinline__ bool before(const Triple<T>& a,
          (a.w == b.w && (a.key < b.key || (a.key == b.key && a.eid < b.eid)));
 }
 
-template <typename T, typename I>
-__global__ void __launch_bounds__(kMstThreads)
-    mst_min_edge_kernel(const I* __restrict__ indptr,
-                        const int* __restrict__ indices,
-                        const T* __restrict__ data,
-                        const int* __restrict__ colors, int64_t n_cols,
-                        T* __restrict__ out_w, int64_t* __restrict__ out_key,
-                        int* __restrict__ out_eid, int n_rows) {
-  const int64_t row =
-      (static_cast<int64_t>(blockIdx.x) * kMstThreads + threadIdx.x) /
-      kMstWarp;
-  const int lane = threadIdx.x % kMstWarp;
-  if (row >= n_rows) return;
-  const int64_t start = indptr[row], end = indptr[row + 1];
-  const int cu = colors[row];
-  const int u = static_cast<int>(row);
-  Triple<T> best{static_cast<T>(__int_as_float(0x7f800000)), kKeyMax,
-                 kEidMax};
-  int64_t j = start + lane;
-  // four of the lane's entries at a time, their index, weight and color
-  // loads in flight together
-  for (; j + 3 * kMstWarp < end; j += 4 * kMstWarp) {
-    int v[4], cv[4];
-    T w[4];
+// The E-stage as a csr_split fold: a row's least cross-edge triple. Five
+// blocks an SM (at most 48 registers a thread, a few spilled): the walks
+// are chains of dependent loads, so the warps in flight set the rate.
+template <typename T>
+struct MinEdge {
+  using Acc = Triple<T>;
+  static constexpr int kMinBlocks = 5;
+  const int* indices;
+  const T* data;
+  const int* colors;
+  int64_t n_cols;
+  T* out_w;
+  int64_t* out_key;
+  int* out_eid;
+  T* part_w;
+  int64_t* part_key;
+  int* part_eid;
+
+  __device__ __forceinline__ Acc identity() const {
+    return {static_cast<T>(__int_as_float(0x7f800000)), kKeyMax, kEidMax};
+  }
+  __device__ __forceinline__ Acc neutral() const { return identity(); }
+
+  // Row u's entries j, j + step, ... below e. Entry positions are int32
+  // edge ids, so they are walked in 32 unsigned bits; the key is formed
+  // only for a weight that can win.
+  template <int kUnroll>
+  __device__ __forceinline__ void walk(int u, int64_t j64, int64_t e64,
+                                       int step, Acc& best) const {
+    if (j64 >= e64) return;
+    const int cu = __ldg(colors + u);
+    const unsigned e = static_cast<unsigned>(e64);
+    for (unsigned j = static_cast<unsigned>(j64); j < e;
+         j += kUnroll * step) {
+      int v[kUnroll], cv[kUnroll];
+      T w[kUnroll];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      v[q] = indices[j + q * kMstWarp];
-      w[q] = data[j + q * kMstWarp];
-    }
+      for (int q = 0; q < kUnroll; ++q) {
+        const unsigned jj = j + q * step;
+        v[q] = jj < e ? __ldg(indices + jj) : u;
+        w[q] = jj < e ? __ldg(data + jj) : T(0);
+      }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) cv[q] = __ldg(colors + v[q]);
+      for (int q = 0; q < kUnroll; ++q)
+        cv[q] = j + q * step < e ? __ldg(colors + v[q]) : cu;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if (cv[q] == cu) continue;
-      const Triple<T> c{w[q],
-                        static_cast<int64_t>(min(u, v[q])) * n_cols +
-                            max(u, v[q]),
-                        static_cast<int>(j + q * kMstWarp)};
-      if (before(c, best)) best = c;
+      for (int q = 0; q < kUnroll; ++q) {
+        if (cv[q] == cu || w[q] > best.w) continue;  // same color, past e,
+                                                      // or heavier
+        const Acc c{w[q],
+                    static_cast<int64_t>(min(u, v[q])) * n_cols +
+                        max(u, v[q]),
+                    static_cast<int>(j + q * step)};
+        if (before(c, best)) best = c;
+      }
     }
   }
-  for (; j < end; j += kMstWarp) {
-    const int v = indices[j];
-    if (__ldg(colors + v) == cu) continue;
-    const Triple<T> c{data[j],
-                      static_cast<int64_t>(min(u, v)) * n_cols + max(u, v),
-                      static_cast<int>(j)};
-    if (before(c, best)) best = c;
-  }
-#pragma unroll
-  for (int off = kMstWarp / 2; off > 0; off /= 2) {
-    const Triple<T> o{__shfl_xor_sync(0xffffffffu, best.w, off),
-                      __shfl_xor_sync(0xffffffffu, best.key, off),
-                      __shfl_xor_sync(0xffffffffu, best.eid, off)};
+
+  __device__ __forceinline__ void fold_xor(Acc& best, int off) const {
+    const Acc o{__shfl_xor_sync(csr_split::kFull, best.w, off),
+                __shfl_xor_sync(csr_split::kFull, best.key, off),
+                __shfl_xor_sync(csr_split::kFull, best.eid, off)};
     if (before(o, best)) best = o;
   }
-  if (lane == 0) {
-    out_w[row] = best.w;
-    out_key[row] = best.key;
-    out_eid[row] = best.eid;
+  __device__ __forceinline__ void fold(Acc& best, const Acc& p) const {
+    if (before(p, best)) best = p;
   }
-}
-
-template <typename T>
-static void launch(int idx64, const void* indptr, const int* indices,
-                   const void* data, const int* colors, int64_t n_cols,
-                   void* out_w, int64_t* out_key, int* out_eid, int n_rows,
-                   cudaStream_t st) {
-  const int64_t blocks =
-      (static_cast<int64_t>(n_rows) * kMstWarp + kMstThreads - 1) /
-      kMstThreads;
-  const T* d = static_cast<const T*>(data);
-  T* w = static_cast<T*>(out_w);
-  if (idx64)
-    mst_min_edge_kernel<T, int64_t><<<blocks, kMstThreads, 0, st>>>(
-        static_cast<const int64_t*>(indptr), indices, d, colors, n_cols, w,
-        out_key, out_eid, n_rows);
-  else
-    mst_min_edge_kernel<T, int><<<blocks, kMstThreads, 0, st>>>(
-        static_cast<const int*>(indptr), indices, d, colors, n_cols, w,
-        out_key, out_eid, n_rows);
-}
+  __device__ __forceinline__ void store_row(int64_t row,
+                                            const Acc& a) const {
+    out_w[row] = a.w;
+    out_key[row] = a.key;
+    out_eid[row] = a.eid;
+  }
+  __device__ __forceinline__ void store_part(int64_t c, const Acc& a) const {
+    part_w[c] = a.w;
+    part_key[c] = a.key;
+    part_eid[c] = a.eid;
+  }
+  __device__ __forceinline__ Acc load_row(int row) const {
+    return {out_w[row], out_key[row], out_eid[row]};
+  }
+  __device__ __forceinline__ Acc load_part(int64_t c) const {
+    return {part_w[c], part_key[c], part_eid[c]};
+  }
+};
 
 }  // namespace raft_port
 
-// dtype: 0 f32, 1 f64 (data and out_w); idx64: indptr is int64 (else
-// int32); indices and colors int32; out_key int64, out_eid int32, all
-// [n_rows]. Edge ids are CSR positions and must fit int32. Returns the
-// CUDA error of the launch.
+// dtype: 0 f32, 1 f64 (data, out_w and part_w); idx64: indptr is int64
+// (else int32); indices and colors int32; out_key int64, out_eid int32,
+// all [n_rows]. n_chunks: chunk warps, at least ceil(indptr[n_rows] /
+// seg_len); owner: int32 [n_chunks], the row whose tail meets chunk c or -1
+// (grid_spmv.py:_spmv_owners); part_w, part_key, part_eid: scratch of
+// n_chunks elements each; lpe: lanes a row of the row groups, a power of
+// two in [1, 32]. Edge ids are CSR positions and must fit int32. Returns
+// the CUDA error of the launches.
 extern "C" int raft_mst_min_edge(int dtype, int idx64, const void* indptr,
                                  const void* indices, const void* data,
                                  const void* colors, int64_t n_cols,
                                  void* out_w, void* out_key, void* out_eid,
-                                 int n_rows, void* stream) {
+                                 int n_rows, int64_t n_chunks, int seg_len,
+                                 int lpe, const void* owner, void* part_w,
+                                 void* part_key, void* part_eid,
+                                 void* stream) {
   using namespace raft_port;
-  if (dtype < 0 || dtype > 1 || n_rows < 1 || n_cols < 1)
+  if (csr_split::bad_args(dtype, n_rows, n_chunks, seg_len, lpe) ||
+      n_cols < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* ind = static_cast<const int*>(indices);
-  const int* col = static_cast<const int*>(colors);
-  int64_t* key = static_cast<int64_t*>(out_key);
-  int* eid = static_cast<int*>(out_eid);
-  if (dtype == 0)
-    launch<float>(idx64, indptr, ind, data, col, n_cols, out_w, key, eid,
-                  n_rows, st);
-  else
-    launch<double>(idx64, indptr, ind, data, col, n_cols, out_w, key, eid,
-                   n_rows, st);
+  csr_split::dispatch(dtype, idx64, [&](auto t, auto i) {
+    using T = decltype(t);
+    using I = decltype(i);
+    const MinEdge<T> op{static_cast<const int*>(indices),
+                        static_cast<const T*>(data),
+                        static_cast<const int*>(colors),
+                        n_cols,
+                        static_cast<T*>(out_w),
+                        static_cast<int64_t*>(out_key),
+                        static_cast<int*>(out_eid),
+                        static_cast<T*>(part_w),
+                        static_cast<int64_t*>(part_key),
+                        static_cast<int*>(part_eid)};
+    csr_split::launch(op, static_cast<const I*>(indptr),
+                      static_cast<const int*>(owner), n_rows, n_chunks,
+                      seg_len, lpe, static_cast<cudaStream_t>(stream));
+  });
   return static_cast<int>(cudaGetLastError());
 }

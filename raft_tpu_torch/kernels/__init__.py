@@ -127,7 +127,7 @@ REGISTRY: Dict[str, KernelSpec] = {
             name="radix_emit",
             source="csrc/radix_emit.cu",
             symbol="raft_radix_emit",
-            # keys, ld, rows, len, k, t, ntie, splits, cnt, out, stream
+            # keys, ld, rows, len, k, t, ntie, splits, scratch, out, stream
             argtypes=(_P, _L, _I, _I, _I, _P, _P, _I, _P, _P, _P),
             plain="raft_tpu_torch.matrix.radix_select._emit_plain",
             ports="raft_tpu/matrix/radix_select.py:_emit_kernel, "
@@ -179,8 +179,10 @@ REGISTRY: Dict[str, KernelSpec] = {
             source="csrc/mst_min_edge.cu",
             symbol="raft_mst_min_edge",
             # dtype, idx64, indptr, indices, data, colors, n_cols, out_w,
-            # out_key, out_eid, n_rows, stream
-            argtypes=(_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _I, _P),
+            # out_key, out_eid, n_rows, n_chunks, seg_len, lpe, owner,
+            # part_w, part_key, part_eid, stream
+            argtypes=(_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _I, _L, _I, _I,
+                      _P, _P, _P, _P, _P),
             plain="raft_tpu_torch.sparse.solver.mst_grid._min_edge_plain",
             ports="raft_tpu/sparse/solver/mst_grid.py:_mst_scan_kernel, "
                   "_mst_reduce_kernel, grid_spmv._tree_gather_kernel "

@@ -28,7 +28,8 @@ run the reference's exact two-level scheme.
 
 The reference's TPU tile planning (``_emit_tiles``, ``_hist_tiles``, the
 VMEM live-set models) has no counterpart: the CUDA kernels split long
-rows across blocks (:func:`_splits`) instead.
+rows across blocks (:func:`_threshold_plan`, :func:`_emit_plan`)
+instead.
 """
 
 from __future__ import annotations
@@ -130,13 +131,6 @@ def _emit_plain(keys: torch.Tensor, t: torch.Tensor, ntie: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _splits(rows: int, n_cols: int, chunk: int) -> int:
-    """Blocks a row for the radix kernels: enough for the card when the
-    rows alone are few, each with at least ``chunk`` columns."""
-    return max(1, min(cdiv(TARGET_BLOCKS, rows), cdiv(n_cols, chunk),
-                      65535))
-
-
 # csrc/radix_threshold.cu's layout, which its constants kBins,
 # kStreamPasses, kScratchWords and kRowCand (kRowFixedBytes) state again:
 # 2,048-bin histograms (11-bit digits), the streaming form's three passes,
@@ -196,6 +190,35 @@ def _threshold_plan(rows: int, n_cols: int,
     return ThresholdPlan("stream", cdiv(n_cols, span), span, cap, scratch, 0)
 
 
+# csrc/radix_emit.cu's chunk, which its kEmitChunk states again: 256
+# threads, 8 16-byte groups a thread
+EMIT_CHUNK = 8192
+
+EmitPlan = namedtuple("EmitPlan", "form splits span scratch_bytes")
+
+
+def _emit_plan(rows: int, n_cols: int) -> EmitPlan:
+    """How csrc/radix_emit.cu runs on ``rows`` rows of ``n_cols`` keys:
+
+    - ``form`` ``"walk"`` where the rows alone fill the card (at least
+      :data:`TARGET_BLOCKS`, as at the kNN chunks) or a row is one chunk
+      of :data:`EMIT_CHUNK` keys: a block a row walks it once with running
+      ranks; ``splits`` 1, no scratch;
+    - else ``"lookback"``: ``splits`` blocks a row, each one chunk
+      (``span`` :data:`EMIT_CHUNK` keys) held in registers between its
+      count and its emission, ranked by a chained scan with decoupled
+      look-back; ``scratch_bytes`` a 64-bit look-back word a block and a
+      32-bit ticket a row, which the kernel zeroes."""
+    if rows < 1 or n_cols < 1:
+        raise ValueError(f"bad emit plan arguments rows={rows} "
+                         f"n_cols={n_cols}")
+    if rows >= TARGET_BLOCKS or n_cols <= EMIT_CHUNK:
+        return EmitPlan("walk", 1, n_cols, 0)
+    splits = cdiv(n_cols, EMIT_CHUNK)
+    return EmitPlan("lookback", splits, EMIT_CHUNK,
+                    8 * rows * splits + 4 * rows)
+
+
 def _check_keys(keys: torch.Tensor, k: int):
     if (keys.dtype != torch.int32 or keys.dim() != 2
             or keys.stride(1) != 1):
@@ -243,12 +266,14 @@ def _radix_emit(keys: torch.Tensor, t: torch.Tensor, ntie: torch.Tensor,
                 or not a.is_contiguous() or a.device != dev):
             raise ValueError("t and ntie must be contiguous int32 [rows] on "
                              "the keys' device")
-    splits = _splits(rows, n, 4096)
-    cnt = torch.empty((rows, splits, 2), dtype=torch.int32, device=dev)
+    plan = _emit_plan(rows, n)
+    scratch = (torch.empty((plan.scratch_bytes,), dtype=torch.uint8,
+                           device=dev) if plan.scratch_bytes else None)
     out = torch.empty((rows, k), dtype=torch.int32, device=dev)
     kernels.launch("radix_emit", dev, keys.data_ptr(), keys.stride(0), rows,
-                   n, k, t.data_ptr(), ntie.data_ptr(), splits,
-                   cnt.data_ptr(), out.data_ptr())
+                   n, k, t.data_ptr(), ntie.data_ptr(), plan.splits,
+                   None if scratch is None else scratch.data_ptr(),
+                   out.data_ptr())
     return out
 
 

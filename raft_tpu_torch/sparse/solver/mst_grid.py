@@ -10,9 +10,14 @@ undirected edges by a host-built ``rank`` array (an ``np.unique`` over all
 canonical pairs), because Mosaic's gathers are lane-local. ``rank`` is
 only the position of ``(min(u, v), max(u, v))`` in sorted order, so the
 int64 key ``min(u, v) * n_cols + max(u, v)`` gives the same order; the
-kernel reads ``colors[u]`` and ``colors[v]`` straight from the CSR arrays,
-one warp a row. So :func:`prepare_mst` builds no rank, no slot grid and
-no host pass: the plan is the CSR arrays on their device.
+kernel reads ``colors[u]`` and ``colors[v]`` straight from the CSR arrays.
+So :func:`prepare_mst` builds no rank, no slot grid and no host pass: the
+plan is the CSR arrays on their device and csr_spmv's split of the work
+(``grid_spmv``): lane groups of :func:`~raft_tpu_torch.sparse.grid_spmv.
+_spmv_lanes` lanes take short rows and long rows' heads, a warp a chunk of
+:data:`~raft_tpu_torch.sparse.grid_spmv.SPMV_SEG` entries long rows'
+tails, named by :func:`~raft_tpu_torch.sparse.grid_spmv._spmv_owners`
+once per graph, since the pattern does not change across rounds.
 
 Per vertex u the result is the lexicographic minimum over u's stored
 entries j with ``colors[u] != colors[indices[j]]`` of ``(data[j], key,
@@ -31,6 +36,8 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import kernels
+from raft_tpu_torch.sparse.grid_spmv import (SPMV_SEG, _spmv_lanes,
+                                             _spmv_owners)
 
 __all__ = ["MSTPlan", "prepare_mst", "per_vertex_min_edge"]
 
@@ -42,7 +49,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 class MSTPlan:
     """The E-stage's view of one graph: the CSR arrays on their device
     (``indices`` int32), the vertex count, ``n_cols`` (the key's
-    multiplier) and the logical edge count."""
+    multiplier) and the logical edge count; and the kernel's split of the
+    work, made here once from the pattern with torch ops on its device (no
+    host sync): ``owners`` (int32, the row whose tail meets each chunk of
+    :data:`SPMV_SEG` physical entries, or -1) and ``lanes`` (lanes a short
+    row)."""
 
     def __init__(self, *, indptr, indices, data, n: int, n_cols: int,
                  n_edges: int):
@@ -52,6 +63,9 @@ class MSTPlan:
         self.n = n
         self.n_cols = n_cols
         self.n_edges = n_edges
+        self.owners = (_spmv_owners(indptr, indices.numel()) if n
+                       else None)
+        self.lanes = _spmv_lanes(indices.numel(), n)
 
     @property
     def device(self) -> torch.device:
@@ -136,12 +150,19 @@ def _min_edge(plan: MSTPlan, colors: torch.Tensor):
     key = torch.empty(n, dtype=torch.int64, device=dev)
     eid = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
+        # one chunk warp (and partial) per SPMV_SEG physical entries
+        n_chunks = plan.owners.numel()
+        part_w = torch.empty(n_chunks, dtype=plan.data.dtype, device=dev)
+        part_key = torch.empty(n_chunks, dtype=torch.int64, device=dev)
+        part_eid = torch.empty(n_chunks, dtype=torch.int32, device=dev)
         kernels.launch("mst_min_edge", dev, _DTYPE_CODE[plan.data.dtype],
                        int(plan.indptr.dtype == torch.int64),
                        plan.indptr.data_ptr(), plan.indices.data_ptr(),
                        plan.data.data_ptr(), colors.contiguous().data_ptr(),
                        plan.n_cols, w.data_ptr(), key.data_ptr(),
-                       eid.data_ptr(), n)
+                       eid.data_ptr(), n, n_chunks, SPMV_SEG, plan.lanes,
+                       plan.owners.data_ptr(), part_w.data_ptr(),
+                       part_key.data_ptr(), part_eid.data_ptr())
     return w, key, eid
 
 

@@ -438,6 +438,54 @@ def test_radix_kernels_match_plain_on_card(card, rows, cols):
         assert torch.equal(idx, trs._emit_plain(keys, pt, pntie, k))
 
 
+def _emit_case(g, card, case):
+    """(keys, k values, wanted emit plan form) of one radix_emit case."""
+    rows, n = (6, 100003) if case != "walk_odd_ld" else (600, 9001)
+    v = torch.randn(rows, n, generator=g, device=card)
+    if case == "sorted":
+        v = torch.sort(v, dim=1).values
+    elif case == "reversed":
+        v = torch.sort(v, dim=1, descending=True).values
+    elif case == "all_equal":
+        v[:] = 0.5
+    elif case == "ties_across_splits":
+        # tie runs over split edges (a split is trs.EMIT_CHUNK keys)
+        v[:, 8000:8400] = -4.0
+        v[1, 16000:40000] = -4.0
+        v[2, ::2] = 1.0
+    keys = trs._to_key(v, True)
+    if case in ("odd_ld", "walk_odd_ld"):
+        # a view from column 1 of rows of n + 2 keys: neither the pointer
+        # nor the row stride 16-byte aligned
+        wide = torch.zeros(rows, n + 2, dtype=torch.int32, device=card)
+        wide[:, 1:n + 1] = keys
+        keys = wide[:, 1:n + 1]
+    ks = tuple(k for k in (1, 77, 8192, 20000) if k < n) + (n,)
+    return keys, ks, "walk" if case == "walk_odd_ld" else "lookback"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "sorted", "reversed",
+                                  "all_equal", "ties_across_splits",
+                                  "odd_ld", "walk_odd_ld"])
+def test_radix_emit_forms_on_card(card, case):
+    """radix_emit in the form its plan picks, exactly against the plain
+    version: several splits a row (look-back) on random, sorted, reverse-
+    sorted and all-equal rows, tie runs across split edges, and element
+    loads where neither the pointer nor the row stride is 16-byte aligned,
+    in both forms; k from 1 to the row's length; two runs equal."""
+    g = torch.Generator(device=card).manual_seed(23)
+    keys, ks, form = _emit_case(g, card, case)
+    rows, n = keys.shape
+    assert trs._emit_plan(rows, n).form == form
+    for k in ks:
+        t, ntie = (a.contiguous() for a in trs._threshold_plain(keys, k))
+        idx = _counted("radix_emit", lambda: trs._radix_emit(keys, t, ntie,
+                                                             k))
+        assert torch.equal(idx, trs._emit_plain(keys, t, ntie, k)), (case, k)
+        assert torch.equal(idx, trs._radix_emit(keys, t, ntie, k))
+
+
 def _threshold_case(g, card, case):
     """(keys, k values, wanted plan form) of one radix_threshold case:
     int32 sortable keys, some rows as views with ld > len."""
@@ -783,6 +831,51 @@ def test_mst_min_edge_matches_plain_on_card(card, dtype):
                                        3000, 3000)
             for a, b in zip(got, want):
                 assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mst_min_edge_hub_tail_on_card(card, dtype, idx):
+    """mst_min_edge's chunk warps and fix-up: a hub row of 100,003 entries
+    whose minimum lies in its last, partial chunk (then in its head, then
+    nowhere: every neighbour of its color), rows of exactly 256 and 257
+    entries, a third of the rows empty: exactly the plain version, with
+    int32 and int64 indptr."""
+    from raft_tpu_torch.sparse.grid_spmv import SPMV_SEG
+    from raft_tpu_torch.sparse.solver import mst_grid as tmg
+
+    g = torch.Generator(device=card).manual_seed(29)
+    n = 4000
+    lengths = torch.randint(0, 21, (n,), generator=g, device=card)
+    lengths[torch.rand(n, generator=g, device=card) < 0.33] = 0
+    lengths[7], lengths[9], lengths[10] = 100003, SPMV_SEG, SPMV_SEG + 1
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=card)
+    indptr[1:] = torch.cumsum(lengths, 0)
+    nnz = int(indptr[-1])
+    indices = torch.randint(0, n, (nnz,), generator=g, device=card,
+                            dtype=torch.int32)
+    data = (torch.rand(nnz, generator=g, device=card, dtype=dtype) + 1.0)
+    s, e = int(indptr[7]), int(indptr[8])
+    assert (e - s) % SPMV_SEG and s % SPMV_SEG
+    for at in (e - 2, s + 1):
+        w = data.clone()
+        w[at] = 0.25                      # the hub's minimum
+        plan = tmg.MSTPlan(indptr=indptr.to(idx), indices=indices, data=w,
+                           n=n, n_cols=n, n_edges=nnz)
+        for colors in (torch.arange(n, device=card),
+                       torch.randint(0, 30, (n,), generator=g, device=card),
+                       torch.zeros(n, device=card)):
+            colors = colors.to(torch.int32)
+            got = _counted("mst_min_edge",
+                           lambda: tmg._min_edge(plan, colors))
+            want = tmg._min_edge_plain(indptr, indices, w, colors, n, n)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+            hub_eid = int(got[2][7])
+            assert hub_eid == (tmg.EID_MAX if int(colors.max()) == 0
+                               else at if int(colors[7]) != int(
+                                   colors[indices[at]]) else hub_eid)
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ from scipy.sparse import csgraph
 
 import raft_tpu_torch as rt
 from _torch_util import n as host
+from _torch_util import t as t_
 from raft_tpu.core.sparse_types import CSRMatrix as JCSR
 from raft_tpu.sparse.solver.mst import mst as j_mst
 from raft_tpu_torch.core.sparse_types import CSRMatrix as TCSR
@@ -194,3 +195,46 @@ def test_per_vertex_min_edge_identity_and_order():
     assert host(key).tolist()[:3] == [0 * 6 + 1, 1 * 6 + 2, 1 * 6 + 2]
     assert host(key).tolist()[3:] == [tmg.KEY_MAX] * 3
     assert host(eid).tolist()[3:] == [tmg.EID_MAX] * 3
+
+
+def _hub_graph(n=3000, hub=100_000, seed=8):
+    """A CSR (numpy indptr, indices, data) with rows of 0-20 entries, a
+    third empty, a hub row of ``hub`` entries and rows of exactly 256 and
+    257 entries; 37 pad entries past indptr[-1]."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 21, n)
+    lengths[rng.random(n) < 0.33] = 0
+    lengths[5], lengths[6], lengths[11] = hub, 256, 257
+    indptr = np.zeros(n + 1, np.int64)
+    indptr[1:] = np.cumsum(lengths)
+    nnz = int(indptr[-1])
+    indices = rng.integers(0, n, nnz + 37).astype(np.int32)
+    data = (rng.random(nnz + 37) + 1.0).astype(np.float32)
+    return indptr, indices, data
+
+
+@pytest.mark.parametrize("idx", [np.int32, np.int64])
+def test_mst_plan_owners_recount(idx):
+    """prepare_mst's split, made once per graph: csr_spmv's chunk owners
+    over the physical entries (37 pads included) and its lanes a short row
+    (held by tests/test_torch_sparse.py's split tests), on a graph with a
+    100,000-entry hub row whose tail, recounted here, owns every chunk
+    from its first boundary to the one holding its last entry."""
+    from raft_tpu_torch.core.sparse_types import CSRMatrix as TC
+    from raft_tpu_torch.sparse.grid_spmv import (SPMV_SEG, _spmv_lanes,
+                                                 _spmv_owners)
+
+    indptr, indices, data = _hub_graph()
+    n_rows = indptr.shape[0] - 1
+    plan = tmg.prepare_mst(TC(t_(indptr.astype(idx)), t_(indices),
+                              t_(data), (n_rows, n_rows)))
+    got = host(plan.owners)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, host(_spmv_owners(
+        t_(indptr), indices.shape[0])))
+    assert got.shape == (indices.shape[0] // SPMV_SEG + 1,)
+    s, e = indptr[5], indptr[6]
+    hub = np.flatnonzero(got == 5)
+    assert hub.tolist() == list(range(-(-s // SPMV_SEG),
+                                      (e - 1) // SPMV_SEG + 1))
+    assert plan.lanes == _spmv_lanes(indices.shape[0], n_rows)

@@ -234,3 +234,53 @@ def test_threshold_cpu_route_is_the_plain_version(case):
     np.testing.assert_array_equal(n(got[0]), srt[:, k - 1])
     below = (n(keys) < n(got[0])[:, None]).sum(1)
     np.testing.assert_array_equal(n(got[1]), k - below)
+
+
+@pytest.mark.parametrize("shape,form", [
+    ("knn_chunk", "walk"), ("knn_l1_chunk", "walk"), ("select", "lookback"),
+    ("knn_256_queries", "lookback"), ("merge_pool_odd_stride", "walk"),
+    ("few_rows_odd_stride", "lookback"), ("one_chunk", "walk"),
+    ("one_key_over", "lookback"), ("many_short_rows", "walk")])
+def test_emit_plan_recount(shape, form):
+    """radix_emit's plan against a numpy recount: one split a row (the
+    walk) where the rows alone give TARGET_BLOCKS blocks (both kNN radix
+    chunks of 4096 x 32,768) or a row is one chunk; else a split a chunk
+    of EMIT_CHUNK keys (the select shape: 128 splits a row), the splits
+    covering the row, with a look-back word a block and a ticket a row of
+    scratch. The two-level merge pool's odd row stride (n_chunks * k
+    columns) changes the loads, not the plan."""
+    from raft_tpu_torch.neighbors import knn_plan
+
+    rows, n_cols = {
+        "knn_chunk": (4096, knn_plan(4096, 1 << 20, 1024)[1]),
+        "knn_l1_chunk": (4096, knn_plan(4096, 1 << 20, 64, "l1")[1]),
+        "select": (64, 1 << 20),
+        "knn_256_queries": (256, knn_plan(256, 1 << 20, 64, "linf")[1]),
+        "merge_pool_odd_stride": (64, 3 * 1001),
+        "few_rows_odd_stride": (5, 9 * 3001),
+        "one_chunk": (3, trs.EMIT_CHUNK),
+        "one_key_over": (3, trs.EMIT_CHUNK + 1),
+        "many_short_rows": (100000, 100)}[shape]
+    plan = trs._emit_plan(rows, n_cols)
+    assert plan.form == form
+    chunk = trs.EMIT_CHUNK
+    if form == "walk":
+        assert rows >= trs.TARGET_BLOCKS or n_cols <= chunk
+        assert (plan.splits, plan.span, plan.scratch_bytes) == (1, n_cols, 0)
+        return
+    starts = np.arange(plan.splits) * plan.span
+    assert plan.span == chunk and starts[-1] < n_cols <= starts[-1] + chunk
+    assert rows < trs.TARGET_BLOCKS and n_cols > chunk
+    assert plan.scratch_bytes == rows * (8 * plan.splits + 4)
+    if shape == "select":
+        assert plan.splits == 128
+    with pytest.raises(ValueError):
+        trs._emit_plan(0, 10)
+
+
+def test_emit_chunk_matches_the_kernel_source():
+    """The plan's EMIT_CHUNK is csrc/radix_emit.cu's kEmitChunk."""
+    from pathlib import Path
+
+    src = Path(trs.__file__).parent.parent / "csrc" / "radix_emit.cu"
+    assert trs.EMIT_CHUNK == _cu_constants(src)["kEmitChunk"]
