@@ -38,6 +38,21 @@ just after:
 - Borůvka MST on bench_mst's graph (R-MAT scale 20, 10M edges, random
   weights): n - n_components forest edges, the f64 total weight equal to
   scipy's, and forest and colors equal to the plain E-stage's;
+- BASELINE config 2, the dense linalg path (bench_prims.py:236-257), on
+  16,384 x 1024 f32 (the ``config2`` line): the gram gemm at each tier
+  against an f64 product over |a|ᵀ|a|, with TF32 turned on around the
+  calls (gemm must turn it off; 'high' within REL), beside f32 cuBLAS
+  and bf16x3 taken in one call over the whole depth; row norms and
+  normalize; ``svd_eig`` and ``svd_qr`` against the f64 singular values,
+  each reconstructing the matrix; ``rsvd_fixed_rank`` at k = 64 on a
+  planted spectrum; ``eig_dc``, ``eig_sel`` (top 16, its route) and
+  ``eig_jacobi`` on the Gram matrix against an f64 eigh (and two sweeps
+  of its rotations as paired row and column updates, timed); the three lstsq routes with a 1024-column b against an f64
+  lstsq; PCA (both solvers), truncated SVD and the incremental fit in
+  2048-row chunks against the monolithic fit; and the keyed sums
+  (``reduce_rows_by_key``, 1024 keys, weighted and not;
+  ``reduce_cols_by_key``, 64 column keys) through ``csr_spmm``, held
+  against its plain version, an f64 sum and timed beside cuSPARSE;
 - the comms layer on a NCCL process group of world size 1: every
   ``perform_test_comms_*`` self-test and ``perform_test_comm_split`` on
   CUDA tensors (each must return True), then BASELINE config 5 at full
@@ -110,11 +125,10 @@ result.
 
 hashes the outputs of ``pairwise_tile``, ``fused_lloyd``, ``fused_topk``,
 ``minonly``, ``topk_insert``, ``unexpanded_tile``, ``radix_threshold``,
-``radix_emit``, ``csr_spmv`` and ``mst_min_edge`` on seeded inputs, and
-of the kNN,
-select_k and mst calls that run the radix and MST kernels, and times
-them at the main paths' shapes,
-from the ``raft_tpu_torch`` package under ROOT: run on this checkout and
+``radix_emit``, ``csr_spmv``, ``csr_spmm`` and ``mst_min_edge`` on seeded
+inputs, and of the kNN, select_k and mst calls that run the radix and MST
+kernels, and times them at the main paths' shapes, from the
+``raft_tpu_torch`` package under ROOT: run on this checkout and
 on another commit's package in turns, it shows whether a change kept
 those kernels bit for bit, and their times.
 """
@@ -166,6 +180,22 @@ UNEXP_INSTR = {"l1": 2, "linf": 2, "hamming": 2, "l2un": 3, "canberra": 12,
 UNEXP_K, UNEXP_Q = 64, 256                 # kNN k; linf/canberra queries
 # H100 SXM f32 lane-instruction issue rate: 132 SMs x 128 lanes x 1.98 GHz
 PEAK_LANE_INSTR = 132 * 128 * 1.98e9
+# BASELINE config 2 (bench_prims.py:236-257): the dense linalg path
+C2_M, C2_N = 16384, 1024
+TIERS = ("default", "high", "highest")
+C2_RSVD_K, C2_RSVD_DECAY = 64, 0.9      # planted s_i = 0.9^i for rsvd
+C2_PCA_K, C2_PCA_DECAY = 64, 0.99       # planted s_i = 0.99^i for PCA
+C2_CHUNK = 2048                         # pca_partial_fit's chunk rows
+C2_SEL_K = 16                           # eig_sel: the iterative route
+C2_KEYS, C2_COL_KEYS = 1024, 64         # reduce_rows/cols_by_key
+# eig_jacobi at the reference's tol and sweeps; f32 Jacobi with the
+# reference's rotation formula keeps eigenvalues to about 2e-5 of the
+# largest at n = 128 (1.5e-5 the reference, 2.1e-5 the port, on the CPU),
+# and its rounding grows with the rotations: a few 1e-4 at n = 1024
+C2_JACOBI_TOL, C2_JACOBI_SWEEPS, C2_JACOBI_REL = 1e-7, 15, 1e-3
+# tolerances, relative to the largest reference value (rsvd: each value)
+C2_SVD_REL, C2_EIG_REL, C2_LSTSQ_REL, C2_RSVD_REL = 1e-4, 1e-5, 1e-4, 1e-4
+C2_PCA_ATOL = 1e-4                      # partial fit's components
 OUT_DIR = "chiprun_out"
 RECORD = {}
 
@@ -2890,15 +2920,15 @@ def unexpanded_sass(build, kernels):
 def fingerprint(root):
     """``python3 chip_smoke.py --fingerprint ROOT``: pairwise_tile,
     fused_lloyd, fused_topk, minonly, topk_insert, unexpanded_tile,
-    radix_threshold, radix_emit, csr_spmv and mst_min_edge on seeded
-    inputs from the
+    radix_threshold, radix_emit, csr_spmv, csr_spmm and mst_min_edge on
+    seeded inputs from the
     raft_tpu_torch package under ROOT (this checkout, or another commit's
     package unpacked beside it), each output hashed (SHA-256 of its
     bytes) and timed at the main paths' shapes (topk_insert at the
     WARPSORT_FILTERED shape on random, descending and ascending rows, k =
-    64 and 256; unexpanded_tile, the radix kernels, csr_spmv and
+    64 and 256; unexpanded_tile, the radix kernels, the CSR products and
     mst_min_edge as fingerprint_unexpanded, fingerprint_radix,
-    fingerprint_spmv and fingerprint_mst say),
+    fingerprint_csr and fingerprint_mst say),
     and the kNN, select_k and mst calls that run them. Two packages whose hashes
     all agree give these kernels' outputs bit for bit; run them in turns
     (A, B, B, A) in one call to compare their times."""
@@ -2979,7 +3009,7 @@ def fingerprint(root):
     torch.cuda.empty_cache()
     fingerprint_unexpanded(gen, dev, digest, hashes, times)
     fingerprint_radix(gen, dev, digest, hashes, times)
-    fingerprint_spmv(gen, dev, digest, hashes, times)
+    fingerprint_csr(gen, dev, digest, hashes, times)
     fingerprint_mst(gen, dev, digest, hashes, times)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3132,11 +3162,27 @@ def fingerprint_radix(gen, dev, digest, hashes, times):
     torch.cuda.empty_cache()
 
 
-def fingerprint_spmv(gen, dev, digest, hashes, times):
-    """csr_spmv in --fingerprint: y hashed on the parity phase's hub graph
-    (a 100,000-entry hub row, NaN pads, f32 and f64, int32 and int64
-    indptr), then hashed and timed on BASELINE config 4's graph (built as
-    config4_phase builds it)."""
+def keyed_csr(keys, n_keys, dtype):
+    """The CSR [n_keys, m] of linalg.reduce's keyed sums (rows grouped by
+    key by a stable sort), built here so that --fingerprint can run it on
+    a package without linalg.reduce."""
+    import torch
+
+    srt, order = torch.sort(keys.long(), stable=True)
+    indptr = torch.searchsorted(srt, torch.arange(n_keys + 1,
+                                                  device=keys.device))
+    return indptr, order.to(torch.int32), torch.ones(
+        keys.numel(), dtype=dtype, device=keys.device)
+
+
+def fingerprint_csr(gen, dev, digest, hashes, times):
+    """csr_spmv and csr_spmm in --fingerprint: y hashed on the parity
+    phase's hub graph (a 100,000-entry hub row, NaN pads, f32 and f64,
+    int32 and int64 indptr), C hashed there at k = 16, 33, 200 and 1024;
+    both hashed and timed on BASELINE config 4's graph (built as
+    config4_phase builds it, the SpMM at SPMM_K), and csr_spmm hashed
+    and timed at config 2's keyed shapes (C2_KEYS row keys over a
+    C2_M x C2_N B, C2_COL_KEYS column keys over its transpose)."""
     import torch
 
     from raft_tpu_torch import device_resources
@@ -3152,6 +3198,10 @@ def fingerprint_spmv(gen, dev, digest, hashes, times):
         for idx in (torch.int32, torch.int64):
             hashes[f"csr_spmv hub {dtype} {idx}"] = digest([tg._spmv(
                 indptr.to(idx), indices, data, x, n)])
+        for k in (16, 33, 200, 1024):
+            b = torch.randn(n, k, generator=gen, device=dev, dtype=dtype)
+            hashes[f"csr_spmm hub k={k} {dtype}"] = digest([tg._spmm(
+                indptr, indices, data, b, n)])
     res = device_resources(dev, seed=SEED)
     src, dst = rmat_rectangular_gen(res, RngState(SEED + 9), RMAT_SCALE,
                                     RMAT_SCALE, RMAT_EDGES)
@@ -3162,7 +3212,21 @@ def fingerprint_spmv(gen, dev, digest, hashes, times):
            tg._spmv_owners(g.indptr, g.indices.numel()))
     hashes["csr_spmv config 4"] = digest([tg._spmv(*ops)])
     times["csr_spmv config 4"] = cuda_ms(lambda: tg._spmv(*ops), 20)
-    del g, ops
+    b = torch.randn(g.n_rows, SPMM_K, generator=gen, device=dev)
+    mm = (g.indptr, g.indices, g.data, b, g.n_rows)
+    hashes["csr_spmm config 4"] = digest([tg._spmm(*mm)])
+    times["csr_spmm config 4"] = cuda_ms(lambda: tg._spmm(*mm), 20)
+    del g, ops, mm, b
+    a = torch.randn(C2_M, C2_N, generator=gen, device=dev)
+    for what, nk, bb in (("rows", C2_KEYS, a),
+                         ("cols", C2_COL_KEYS, a.T.contiguous())):
+        keys = torch.randint(0, nk, (bb.shape[0],), generator=gen,
+                             device=dev)
+        mm = keyed_csr(keys, nk, torch.float32) + (bb, nk)
+        hashes[f"csr_spmm config 2 {what}"] = digest([tg._spmm(*mm)])
+        times[f"csr_spmm config 2 {what}"] = cuda_ms(
+            lambda mm=mm: tg._spmm(*mm), 20)
+    del a, bb, mm
     torch.cuda.empty_cache()
 
 
@@ -3931,6 +3995,397 @@ def comms_mnmg_phase(res, dev, g):
             errs)
 
 
+# ---------------------------------------------------------------------------
+# BASELINE config 2: the dense linalg path at full width
+# ---------------------------------------------------------------------------
+
+
+def c2_rel(got, want):
+    """max |got - want| / max |want| over float tensors."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+def c2_planted(dev, decay):
+    """[C2_M, C2_N] f32 = U diag(decay^i) Vᵀ with seeded orthonormal U, V,
+    and its singular values in f64."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    u = torch.linalg.qr(torch.randn(C2_M, C2_N, generator=g,
+                                    device=dev)).Q
+    v = torch.linalg.qr(torch.randn(C2_N, C2_N, generator=g,
+                                    device=dev)).Q
+    s = decay ** torch.arange(C2_N, dtype=torch.float64, device=dev)
+    return ((u.double() * s) @ v.double().T).float(), s
+
+
+def c2_gemm(res, a, out):
+    """(a) the gram gemm at each tier against an f64 product over
+    |a|ᵀ|a|, TF32 turned on globally around the call (the port's scope
+    must turn it off), beside f32 cuBLAS with TF32 off."""
+    import torch
+
+    from raft_tpu_torch import linalg as tl
+    from raft_tpu_torch.linalg.contractions import _split_hi_lo
+    from raft_tpu_torch.util import precision as tprec
+
+    a64 = a.double()
+    exact = a64.T @ a64
+    mass = a64.abs().T @ a64.abs()
+    flops = 2.0 * C2_N * C2_N * C2_M
+    ab = C2_M * C2_N * 4 + C2_N * C2_N * 4
+    passes = {"default": 1, "high": 3}
+    saved = torch.backends.cuda.matmul.allow_tf32
+    tiers = {}
+    seen = []
+    orig = torch.mm, torch.bmm, torch.matmul
+
+    def spy(fn):
+        def call(*args, **kw):
+            seen.append((tier, torch.backends.cuda.matmul.allow_tf32))
+            return fn(*args, **kw)
+        return call
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.mm, torch.bmm, torch.matmul = map(spy, orig)
+        for tier in TIERS:
+            got = tl.gemm(res, a, a, trans_a=True, precision=tier)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.float32 and got.shape == (C2_N, C2_N),
+                  f"config2 gemm {tier}: dtype or shape")
+            err = float(((got.double() - exact).abs() / mass).max())
+            peak = PEAK_BF16_FLOPS if tier != "highest" else PEAK_F32_FLOPS
+            tiers[tier] = {
+                "max_err_over_mass": err,
+                "ms": cuda_ms(lambda tier=tier: tl.gemm(
+                    res, a, a, trans_a=True, precision=tier), 10),
+                "bound_ms": max(flops * passes.get(tier, 1) / peak,
+                                ab / PEAK_BYTES) * 1e3,
+                "bound_by": "operations"}
+        torch.mm, torch.bmm, torch.matmul = orig
+        check({t for t, _ in seen} == set(TIERS),
+              "a gemm tier made no mm, bmm or matmul call")
+        check(not any(on for _, on in seen),
+              "TF32 was on inside gemm's mm, bmm or matmul calls")
+        check(torch.backends.cuda.matmul.allow_tf32,
+              "gemm did not restore the caller's TF32 flag")
+    finally:
+        torch.mm, torch.bmm, torch.matmul = orig
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    check(tiers["high"]["max_err_over_mass"] <= REL,
+          f"config2 gemm 'high' error {tiers['high']['max_err_over_mass']}")
+    check(tiers["highest"]["max_err_over_mass"]
+          < tiers["high"]["max_err_over_mass"],
+          "config2 gemm 'highest' is not tighter than 'high'")
+    # bf16x3 with each product one cuBLAS call over the whole depth, the
+    # accumulator's truncation unchunked (blas._K_CHUNK's reason)
+    hi, lo = _split_hi_lo(a)
+    one = sum(torch.mm(x.T, y, out_dtype=torch.float32)
+              for x, y in ((hi, hi), (hi, lo), (lo, hi)))
+    out["gemm_high_one_call_max_err_over_mass"] = float(
+        ((one.double() - exact).abs() / mass).max())
+    del hi, lo, one
+    with tprec.scope("highest"):
+        lib = torch.matmul(a.T, a)
+        out["gemm_cublas_f32_ms"] = cuda_ms(lambda: torch.matmul(a.T, a), 10)
+    out["gemm_cublas_f32_max_err_over_mass"] = float(
+        ((lib.double() - exact).abs() / mass).max())
+    out["gemm"] = tiers
+    out["gemm_gflop"] = flops / 1e9
+    return exact
+
+
+def c2_norms(res, a, out):
+    """(b) row_norm (L2, L1) and normalize against f64."""
+    import torch
+
+    from raft_tpu_torch import linalg as tl
+
+    a64 = a.double()
+    want = {"l2": (a64 * a64).sum(1), "l1": a64.abs().sum(1)}
+    nb = C2_M * C2_N * 4
+    rows = {}
+    for kind in ("l2", "l1"):
+        got = tl.row_norm(res, a, kind)
+        err = c2_rel(got, want[kind])
+        check(err <= 1e-5, f"config2 row_norm {kind}: rel err {err}")
+        rows[f"row_norm_{kind}"] = {
+            "rel_err": err,
+            "ms": cuda_ms(lambda kind=kind: tl.row_norm(res, a, kind), 20),
+            "bound_ms": (nb + C2_M * 4) / PEAK_BYTES * 1e3}
+    z = tl.normalize(res, a)
+    err = c2_rel(z, a64 / want["l2"].sqrt()[:, None])
+    check(err <= 1e-5, f"config2 normalize: rel err {err}")
+    rows["normalize"] = {"rel_err": err,
+                         "ms": cuda_ms(lambda: tl.normalize(res, a), 20),
+                         "bound_ms": 2 * nb / PEAK_BYTES * 1e3}
+    out["norms"] = rows
+
+
+def c2_svd(res, a, out):
+    """(c) svd_eig and svd_qr against svdvals of the f64 copy, each
+    reconstructing a."""
+    import torch
+
+    from raft_tpu_torch import linalg as tl
+
+    s64 = torch.linalg.svdvals(a.double())
+    rows = {"svd_gesvdj_rel_err": c2_rel(torch.linalg.svdvals(
+        a, driver="gesvdj"), s64)}
+    for name in ("svd_eig", "svd_qr"):
+        u, s, v = getattr(tl, name)(res, a)
+        err = c2_rel(s, s64)
+        check(err <= C2_SVD_REL, f"config2 {name}: singular values rel err "
+              f"{err}")
+        check(tl.evaluate_svd_by_reconstruction(res, a, u, s, v),
+              f"config2 {name} does not reconstruct a")
+        rows[name] = {"rel_err": err, "ms": cuda_ms(
+            lambda name=name: getattr(tl, name)(res, a), 3)}
+    out["svd"] = rows
+
+
+def c2_rsvd(res, a, planted, s_planted, out):
+    """(d) rsvd_fixed_rank at k = 64: the planted spectrum's top 64, then
+    the time on the bench's data."""
+    from raft_tpu_torch import linalg as tl
+
+    _, s, _ = tl.rsvd_fixed_rank(res, planted, C2_RSVD_K)
+    want = s_planted[:C2_RSVD_K]
+    err = float(((s.double() - want).abs() / want).max())
+    check(err <= C2_RSVD_REL, f"config2 rsvd: planted spectrum rel err {err}")
+    out["rsvd"] = {"k": C2_RSVD_K, "planted_rel_err": err,
+                   "ms": cuda_ms(lambda: tl.rsvd_fixed_rank(
+                       res, a, C2_RSVD_K), 3)}
+
+
+def c2_eig(res, gram, out):
+    """(e) eig_dc, eig_sel (top 16: the iterative route, or its fall back)
+    and eig_jacobi on the 1024 x 1024 Gram matrix against an f64 eigh, and
+    eig_jacobi's rotations as paired row and column updates, timed."""
+    import torch
+
+    from raft_tpu_torch import linalg as tl
+    from raft_tpu_torch.linalg import eig as teig
+
+    g32 = gram.float()
+    w64 = torch.linalg.eigvalsh(gram)
+    scale = float(w64.abs().max())
+    rows = {}
+    w, _ = tl.eig_dc(res, g32)
+    err = float((w.double() - w64).abs().max()) / scale
+    check(err <= C2_EIG_REL, f"config2 eig_dc: rel err {err}")
+    rows["eig_dc"] = {"rel_err": err,
+                      "ms": cuda_ms(lambda: tl.eig_dc(res, g32), 3)}
+    fell_back = []
+    orig = teig._eig_dc_slice
+
+    def spy(*args, **kw):
+        fell_back.append(True)
+        return orig(*args, **kw)
+
+    teig._eig_dc_slice = spy
+    try:
+        t0 = time.perf_counter()
+        w, _ = tl.eig_sel(res, g32, C2_SEL_K)
+        torch.cuda.synchronize()
+        sel_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        teig._eig_dc_slice = orig
+    err = float((w.double() - w64[-C2_SEL_K:]).abs().max()) / scale
+    check(err <= C2_EIG_REL, f"config2 eig_sel: rel err {err}")
+    rows["eig_sel"] = {"k": C2_SEL_K, "rel_err": err, "ms": sel_ms,
+                       "route": "eig_dc slice" if fell_back
+                       else "iterative (Lanczos)"}
+    t0 = time.perf_counter()
+    w, v, rep = tl.eig_jacobi(res, g32, tol=C2_JACOBI_TOL,
+                              sweeps=C2_JACOBI_SWEEPS, return_report=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    err = float((w.double() - w64).abs().max()) / scale
+    check(err <= C2_JACOBI_REL, f"config2 eig_jacobi: rel err {err}")
+    rows["eig_jacobi"] = {
+        "form": "dense (the reference's)", "rel_err": err,
+        "sweeps": rep.n_iter, "converged": rep.converged,
+        "residual": rep.residual, "ms": ms,
+        "ms_per_sweep": ms / max(rep.n_iter, 1)}
+    out["eig"] = rows
+
+
+def c2_lstsq(res, a, out):
+    """(f) the three lstsq routes with a 1024-column b against an f64
+    torch.linalg.lstsq."""
+    import torch
+
+    from raft_tpu_torch import linalg as tl
+
+    g = torch.Generator(device=a.device).manual_seed(SEED + 22)
+    b = torch.randn(C2_M, C2_N, generator=g, device=a.device)
+    want = torch.linalg.lstsq(a.double(), b.double()).solution
+    rows = {}
+    for name in ("lstsq_svd_qr", "lstsq_eig", "lstsq_qr"):
+        got = getattr(tl, name)(res, a, b)
+        err = c2_rel(got, want)
+        check(err <= C2_LSTSQ_REL, f"config2 {name}: rel err {err}")
+        rows[name] = {"rel_err": err, "ms": cuda_ms(
+            lambda name=name: getattr(tl, name)(res, a, b), 3)}
+    out["lstsq"] = rows
+
+
+def c2_pca(res, x, steep, out):
+    """(g) pca_fit (COV_EIG_DQ, RANDOMIZED), tsvd_fit, and pca_partial_fit
+    over the same rows in C2_CHUNK-row chunks then pca_finalize, whose
+    components must match pca_fit's (both sign-flipped), on ``x`` (a
+    planted spectrum of C2_PCA_DECAY, gaps wide enough for 64 f32
+    components); the randomized solver against the exact fit on
+    ``steep`` (C2_RSVD_DECAY: a randomized sketch needs a decaying
+    spectrum)."""
+    import torch
+
+    from raft_tpu_torch import linalg as tl
+
+    k = C2_PCA_K
+    rnd_solver = tl.Solver.RANDOMIZED
+    full = tl.pca_fit(res, x, k)
+    tsvd = tl.tsvd_fit(res, x, k)
+    inc = tl.pca_finalize(res, tl.pca_partial_fit(res, x,
+                                                  chunk_rows=C2_CHUNK), k)
+    comp_err = float((inc.components - full.components).abs().max())
+    var_err = c2_rel(inc.explained_variance, full.explained_variance)
+    check(comp_err <= C2_PCA_ATOL and var_err <= 1e-4,
+          f"config2 pca_partial_fit: components {comp_err}, variance "
+          f"{var_err}")
+    rnd_err = c2_rel(tl.pca_fit(res, steep, k, solver=rnd_solver)
+                     .explained_variance,
+                     tl.pca_fit(res, steep, k).explained_variance)
+    check(rnd_err <= 1e-4, f"config2 pca RANDOMIZED: variance rel err "
+          f"{rnd_err}")
+    check(bool(torch.isfinite(tsvd.components).all()), "config2 tsvd")
+    out["pca"] = {
+        "k": k, "chunk_rows": C2_CHUNK,
+        "partial_vs_fit_component_max_abs": comp_err,
+        "partial_vs_fit_variance_rel": var_err,
+        "randomized_variance_rel": rnd_err,
+        "pca_fit_ms": cuda_ms(lambda: tl.pca_fit(res, x, k), 3),
+        "pca_fit_randomized_ms": cuda_ms(lambda: tl.pca_fit(
+            res, x, k, solver=rnd_solver), 3),
+        "tsvd_fit_ms": cuda_ms(lambda: tl.tsvd_fit(res, x, k), 3),
+        "partial_fit_ms": cuda_ms(lambda: tl.pca_partial_fit(
+            res, x, chunk_rows=C2_CHUNK), 3),
+        "finalize_ms": cuda_ms(lambda: tl.pca_finalize(
+            res, tl.pca_partial_fit(res, x, chunk_rows=C2_CHUNK), k), 1)}
+
+
+def c2_keyed(res, a, out):
+    """(h) reduce_rows_by_key at C2_M x C2_N with C2_KEYS keys, weighted
+    and not, and reduce_cols_by_key over C2_COL_KEYS column keys, with
+    the launch counts set to 0 just before; csr_spmm at these shapes
+    against its plain version and an f64 sum, and beside cuSPARSE.
+    Returns (launches, max abs error against the plain version, the
+    keyed shape's numbers for the kernels line)."""
+    import importlib
+    import warnings
+
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch import linalg as tl
+    from raft_tpu_torch.sparse import grid_spmv as tg
+
+    red = importlib.import_module("raft_tpu_torch.linalg.reduce")
+    dev = a.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    keys = torch.randint(0, C2_KEYS, (C2_M,), generator=g, device=dev,
+                         dtype=torch.int32)
+    w = torch.rand(C2_M, generator=g, device=dev) + 0.5
+    col_keys = torch.randint(0, C2_COL_KEYS, (C2_N,), generator=g,
+                             device=dev, dtype=torch.int32)
+    kernels.reset_launch_counts()
+    plain_w = tl.reduce_rows_by_key(res, a, keys, C2_KEYS)
+    weighted = tl.reduce_rows_by_key(res, a, keys, C2_KEYS, weights=w)
+    cols = tl.reduce_cols_by_key(res, a, col_keys, C2_COL_KEYS)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check(launches["csr_spmm"] > 0, "config2's keyed sums never launched "
+          "csr_spmm")
+    errs = []
+    cases = (("rows", keys, None, a, C2_KEYS, plain_w),
+             ("rows_weighted", keys, w, a, C2_KEYS, weighted),
+             ("cols", col_keys, None, a.T.contiguous(), C2_COL_KEYS, cols.T))
+    shapes = {}
+    for what, kk, ww, b, nk, got in cases:
+        ind = red._key_csr(kk.long(), torch.ones_like(kk, dtype=torch.bool),
+                           nk, torch.float32, ww)
+        want = tg._spmm_plain(*ind, b, nk)
+        errs.append(check_csr_product(got.contiguous(), want, *ind, b,
+                                      f"config2 keyed {what}"))
+        # the f64 sum is grouped by index_add_, not through the CSR
+        b64 = b.double() if ww is None else b.double() * ww.double()[:, None]
+        f64 = torch.zeros(nk, b.shape[1], dtype=torch.float64,
+                          device=dev).index_add_(0, kk.long(), b64)
+        mass = torch.zeros_like(f64).index_add_(0, kk.long(), b64.abs())
+        del b64
+        check(bool(((got.double() - f64).abs()
+                    <= SPARSE_REL * mass + SPARSE_REL).all()),
+              f"config2 keyed {what}: against the f64 sum")
+        bound, nbytes = spmv_bound(int(ind[0][-1]), nk, b.shape[0],
+                                   b.shape[1], 8)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            lib = torch.sparse_csr_tensor(ind[0].to(torch.int32), *ind[1:],
+                                          size=(nk, b.shape[0]))
+        shapes[what] = {
+            "shape": [nk, b.shape[0], b.shape[1]],
+            "kernel_ms": cuda_ms(lambda ind=ind, b=b, nk=nk: tg._spmm(
+                *ind, b, nk), 20),
+            "call_ms": cuda_ms({
+                "rows": lambda: tl.reduce_rows_by_key(res, a, keys, C2_KEYS),
+                "rows_weighted": lambda: tl.reduce_rows_by_key(
+                    res, a, keys, C2_KEYS, weights=w),
+                "cols": lambda: tl.reduce_cols_by_key(
+                    res, a, col_keys, C2_COL_KEYS)}[what], 10),
+            "plain_ms": cuda_ms(lambda ind=ind, b=b, nk=nk: tg._spmm_plain(
+                *ind, b, nk), 5),
+            "bound_ms": bound, "bytes": nbytes,
+            "library_ms": cuda_ms(lambda lib=lib, b=b: lib @ b, 20),
+            "library_call": "torch.sparse_csr_tensor(...) @ B (cuSPARSE)"}
+    out["keyed"] = shapes
+    return launches, max(errs), shapes["rows"]
+
+
+def config2_phase(res, dev):
+    """BASELINE config 2 at full width (bench_prims.py:236-257): the gram
+    gemm at each tier, row norms, the SVDs, the randomized SVD, the
+    eigensolvers on the Gram matrix, lstsq, PCA, and the keyed sums on
+    csr_spmm. Returns the keyed sums' (launches, max abs error, numbers
+    at the keyed shape)."""
+    import torch
+
+    t_start = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    a = torch.randn(C2_M, C2_N, generator=g, device=dev)
+    out = {"shape": [C2_M, C2_N]}
+    exact = c2_gemm(res, a, out)
+    c2_norms(res, a, out)
+    c2_svd(res, a, out)
+    steep, s_steep = c2_planted(dev, C2_RSVD_DECAY)
+    c2_rsvd(res, a, steep, s_steep, out)
+    c2_eig(res, exact, out)
+    del exact
+    c2_lstsq(res, a, out)
+    x, _ = c2_planted(dev, C2_PCA_DECAY)
+    c2_pca(res, x, steep, out)
+    del x, steep
+    launches, keyed_err, keyed_row = c2_keyed(res, a, out)
+    out["launches"] = {n: c for n, c in launches.items() if c}
+    out["seconds"] = time.perf_counter() - t_start
+    emit("config2", **out)
+    del a
+    torch.cuda.empty_cache()
+    return launches, keyed_err, keyed_row
+
+
 def main():
     import torch
 
@@ -4040,6 +4495,12 @@ def main():
     table.append(mst_numbers(mst_plan, mst_launches,
                              mst_out["per_round_kernel_alone_ms"]))
     torch.cuda.empty_cache()
+    c2_launches, c2_err, c2_keyed_row = config2_phase(res, dev)
+    spmm_row = next(r for r in table if r["name"] == "csr_spmm")
+    spmm_row["config2_launches"] = c2_launches["csr_spmm"]
+    spmm_row["launches"] += c2_launches["csr_spmm"]
+    spmm_row["max_abs_err"] = max(spmm_row["max_abs_err"], c2_err)
+    spmm_row["keyed_shape"] = c2_keyed_row
     c5_launches, model_launches, c5_plain, mnmg_launches, mnmg_errs = \
         comms_mnmg_phase(res, dev, g)
     del g

@@ -41,11 +41,12 @@ from raft_tpu_torch.linalg.contractions import (fused_l2_argmin_pallas,
                                                 fused_lloyd_pallas,
                                                 fused_lloyd_prepared,
                                                 lloyd_prepare)
+from raft_tpu_torch.linalg.reduce import _sums_by_key
 from raft_tpu_torch.matrix.epilogue import label_onehot
 from raft_tpu_torch.random.rng_state import RngState
-from raft_tpu_torch.sparse.grid_spmv import _spmm
 from raft_tpu_torch.util.input_validation import (expect_2d,
                                                   expect_finite,
+                                                  expect_one_sync,
                                                   resolve_sync_every)
 from raft_tpu_torch.util.precision import with_matmul_precision
 
@@ -373,27 +374,17 @@ def cluster_cost(res, x, centroids):
 def _block_label_sums(x, labels, in_block, kb: int, w=None):
     """Per-centroid ``(sums [kb, d], counts [kb])`` of the rows whose
     label (local to the block) is in the block, from the labels alone:
-    the rows grouped by label into a CSR matrix [kb, m] (a stable
-    counting sort, so each centroid's rows keep their order), whose
-    product with x is the in-order segment sum of ``csrc/csr_spmm.cu``
-    (its plain version on the CPU); the counts are the labels' bincount.
-    ``w`` weights the rows."""
-    rows = torch.nonzero(in_block)[:, 0]
-    lab = labels[rows].long()
-    order = torch.sort(lab, stable=True).indices
-    indices = rows[order].to(torch.int32)
-    hist = torch.bincount(lab, minlength=kb)
-    indptr = torch.zeros(kb + 1, dtype=torch.int64, device=x.device)
-    indptr[1:] = torch.cumsum(hist, 0)
+    the keyed row sums of ``linalg.reduce`` (a stable sort into a CSR
+    matrix [kb, m], its product with x the in-order segment sum of
+    ``csrc/csr_spmm.cu``); the counts are the rows a label, or their
+    weights' bincount. ``w`` weights the rows."""
+    sums, hist = _sums_by_key(x, labels, in_block, kb, w)
     if w is None:
-        data = torch.ones(indices.numel(), dtype=torch.float32,
-                          device=x.device)
-        counts = hist.to(torch.float32)
-    else:
-        wf = w.to(torch.float32)
-        data = wf[indices.long()]
-        counts = torch.bincount(lab, weights=wf[rows], minlength=kb)
-    return _spmm(indptr, indices, data, x, kb), counts
+        return sums, hist.to(torch.float32)
+    rows = torch.nonzero(in_block)[:, 0]
+    return sums, torch.bincount(labels[rows].long(),
+                                weights=w.to(torch.float32)[rows],
+                                minlength=kb)
 
 
 @with_matmul_precision
@@ -515,12 +506,7 @@ def kmeans_fit_mnmg(res, params: KMeansParams, x,
         w = torch.as_tensor(sample_weights, device=x.device)
         _validate_sample_weights(w, x.shape[0])
         w = w.to(torch.float32)
-    if resolve_sync_every(sync_every) > 1:
-        raise NotImplementedError(
-            "kmeans_fit_mnmg: sync_every > 1 (the reference's iterations "
-            "chunked into one device program) is not ported yet; it becomes "
-            "a CUDA-graph capture with the runtime port (ROADMAP.md, queue A "
-            "item 13). sync_every=1 is the same algorithm.")
+    expect_one_sync(sync_every, "kmeans_fit_mnmg")
     if mesh is None:
         mesh = core_res.get_mesh(handle)
     n_blocks = 1

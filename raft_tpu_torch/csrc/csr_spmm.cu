@@ -23,7 +23,12 @@
 // row writes its zeros), a group of lpe lanes a row, each lane a 16-byte
 // vector of the row's columns (lpe = the vectors of a 128-column f32 or
 // 64-column f64 pass, rounded up to a power of two: 8 rows a warp at
-// k = 16, 32 at k = 4), so short rows fill the warp. Chunk warps take the
+// k = 16, 32 at k = 4), so short rows fill the warp. Where the row groups
+// alone are fewer than the card holds (kFillWarps) and a row takes more
+// than one pass of lpe vectors of its columns (a wide B, k = 1024 and
+// more: the keyed sums of linalg.reduce, a few rows of many columns),
+// the passes are shared out among up to that many groups a row, each
+// output's sum in the same order. Chunk warps take the
 // rest of the long rows, 256 entries of the entry array each, into [k]
 // partials, and a second kernel adds a long row's partials to C[r] in
 // chunk order, a warp 32 rows. A hub row of 44,835 entries is then one
@@ -43,6 +48,7 @@
 namespace raft_port {
 
 constexpr int kSpmmThreads = 256;                  // 8 warps a block
+constexpr int64_t kFillWarps = 8192;   // about an H100's resident warps
 
 __device__ __forceinline__ void load16(float (&v)[4], const float* p) {
   const float4 w = __ldg(reinterpret_cast<const float4*>(p));
@@ -97,20 +103,26 @@ struct BRows {
 };
 
 // Warps [0, n_chunks) are chunk warps, the rest row groups of 32 / lpe
-// rows each (the long chunk work starts first).
+// rows each, n_cb a group of rows, each taking cb_cols of the columns
+// (the long chunk work starts first).
 template <typename T, typename I, int VW>
 __global__ void __launch_bounds__(kSpmmThreads)
     csr_spmm_split(const I* __restrict__ indptr, BRows<T, VW> rows,
                    T* __restrict__ c, int64_t ldc, T* __restrict__ part,
                    int64_t n_chunks, int n_rows, int k, int seg_len,
-                   int lpe) {
+                   int lpe, int n_cb, int cb_cols) {
   const int64_t w =
       (static_cast<int64_t>(blockIdx.x) * kSpmmThreads + threadIdx.x) /
       kWarp;
-  if (w >= n_chunks)
+  const int64_t g = w - n_chunks;
+  if (g >= 0 && n_cb == 1) {
     seg::rows_sum(indptr, rows, c, ldc, n_rows, k, seg_len,
-                  (w - n_chunks) * (kWarp / lpe), lpe);
-  else
+                  g * (kWarp / lpe), lpe);
+  } else if (g >= 0) {
+    const int c0 = static_cast<int>(g % n_cb) * cb_cols;
+    seg::rows_sum(indptr, rows, c, ldc, n_rows, k, seg_len,
+                  g / n_cb * (kWarp / lpe), lpe, c0, c0 + cb_cols);
+  } else
     seg::chunk_sum(indptr, rows, part, n_rows, k, seg_len, w);
 }
 
@@ -160,17 +172,25 @@ static void launch(const void* indptr, const void* indices, const void* data,
   const int vw = vec ? kVec : 1;
   const int lpe = seg::lanes_for(k < kWarp * vw ? k : kWarp * vw, vw);
   const int64_t rpw = kWarp / lpe;        // rows a row warp
-  const int64_t warps = n_chunks + (n_rows + rpw - 1) / rpw;
+  const int64_t row_warps = (n_rows + rpw - 1) / rpw;
+  const int span = lpe * vw;              // columns a pass
+  const int passes = (k + span - 1) / span;
+  const int64_t want = kFillWarps / row_warps;  // groups to fill the card
+  const int n_split = static_cast<int>(want < passes ? (want > 1 ? want : 1)
+                                                     : passes);
+  const int cb_cols = (passes + n_split - 1) / n_split * span;
+  const int n_cb = (k + cb_cols - 1) / cb_cols;
+  const int64_t warps = n_chunks + row_warps * n_cb;
   const int64_t per_block = kSpmmThreads / kWarp;
   const int64_t blocks = (warps + per_block - 1) / per_block;
   if (vec)
     csr_spmm_split<T, I, kVec><<<blocks, kSpmmThreads, 0, st>>>(
         ip, BRows<T, kVec>{ind, d, bm, ldb}, cm, ldc, pm, n_chunks, n_rows, k,
-        seg_len, lpe);
+        seg_len, lpe, n_cb, cb_cols);
   else
     csr_spmm_split<T, I, 1><<<blocks, kSpmmThreads, 0, st>>>(
         ip, BRows<T, 1>{ind, d, bm, ldb}, cm, ldc, pm, n_chunks, n_rows, k,
-        seg_len, lpe);
+        seg_len, lpe, n_cb, cb_cols);
   const int64_t fix_blocks =
       (static_cast<int64_t>(n_rows) + kSpmmThreads - 1) / kSpmmThreads;
   csr_spmm_fixup<T, I><<<fix_blocks, kSpmmThreads, 0, st>>>(

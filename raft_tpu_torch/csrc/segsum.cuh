@@ -72,13 +72,16 @@ __host__ __device__ __forceinline__ int lanes_for(int cols, int vw) {
 
 // Row group: segments [r0, r0 + 32 / lpe), lpe lanes a segment, each lane
 // kVW columns at a time over the segment's first seg_len entries; an
-// empty segment writes its zeros. No shuffles, so the groups may diverge.
+// empty segment writes its zeros. Columns [c0, min(c1, k)) only, so that
+// several groups can share a segment's columns. No shuffles, so the
+// groups may diverge.
 template <class Src, class I>
 __device__ __forceinline__ void rows_sum(const I* __restrict__ ptr,
                                          const Src& src,
                                          typename Src::T* __restrict__ out,
                                          int64_t ldo, int n_rows, int k,
-                                         int seg_len, int64_t r0, int lpe) {
+                                         int seg_len, int64_t r0, int lpe,
+                                         int c0 = 0, int c1 = 0x7fffffff) {
   using T = typename Src::T;
   using W = typename Src::W;
   constexpr int VW = Src::kVW;
@@ -89,7 +92,8 @@ __device__ __forceinline__ void rows_sum(const I* __restrict__ ptr,
   const int64_t s = ptr[row];
   int64_t e = ptr[row + 1];
   if (e - s > seg_len) e = s + seg_len;
-  for (int col = (lane % lpe) * VW; col < k; col += lpe * VW) {
+  const int cend = c1 < k ? c1 : k;
+  for (int col = c0 + (lane % lpe) * VW; col < cend; col += lpe * VW) {
     T acc[VW];
 #pragma unroll
     for (int u = 0; u < VW; ++u) acc[u] = 0;

@@ -47,7 +47,7 @@ from raft_tpu_torch.core.guards import (ConvergenceError, ConvergenceReport,
 from raft_tpu_torch.core.resources import as_tensor
 from raft_tpu_torch.core.sparse_types import COOMatrix, CSRMatrix
 from raft_tpu_torch.sparse import convert, grid_spmv, linalg, op
-from raft_tpu_torch.util.input_validation import resolve_sync_every
+from raft_tpu_torch.util.input_validation import expect_one_sync
 from raft_tpu_torch.util.precision import with_matmul_precision
 
 __all__ = ["LanczosConfig", "lanczos_compute_eigenpairs", "eigsh",
@@ -137,17 +137,6 @@ def _extend_device(matvec, basis, v, seed: int, j_start: int, ncv: int,
     return basis, torch.stack([alphas, betas]), brk, v
 
 
-def _resolve_sync_every(sync_every: Optional[int]) -> int:
-    n = resolve_sync_every(sync_every)
-    if n > 1:
-        raise NotImplementedError(
-            "lanczos: sync_every > 1 (restart chunks as one device program) "
-            "is not ported yet; it becomes a CUDA-graph capture with the "
-            "runtime port (ROADMAP.md, queue A item 13). sync_every=1 is "
-            "the same algorithm.")
-    return n
-
-
 @with_matmul_precision
 def lanczos_compute_eigenpairs(res, a, config: LanczosConfig,
                                v0=None, rank1=None,
@@ -235,7 +224,7 @@ def _eigsh_csr(csr, cfg: LanczosConfig, v0, rank1=None,
     which = cfg.which
     if which not in ("LA", "LM", "SA", "SM"):
         raise ValueError(f"which must be LA|LM|SA|SM, got {which}")
-    _resolve_sync_every(sync_every)
+    expect_one_sync(sync_every, "lanczos")
 
     dtype = torch.float32
     device = csr.device
@@ -526,7 +515,7 @@ def eigsh_mnmg(a, k: int = 6, mesh=None, axis: str = "data",
     which = cfg.which
     if which not in ("LA", "LM", "SA", "SM"):
         raise ValueError(f"which must be LA|LM|SA|SM, got {which}")
-    _resolve_sync_every(sync_every)
+    expect_one_sync(sync_every, "lanczos")
     dtype = torch.float32
     device = csr.data.device
 

@@ -31,7 +31,8 @@ import torch
 from raft_tpu_torch.core import env
 
 __all__ = ["TIERS", "set_matmul_precision", "get_matmul_precision",
-           "current_mode", "scope", "with_matmul_precision", "canonical"]
+           "current_mode", "scope", "with_matmul_precision", "canonical",
+           "resolve"]
 
 TIERS = ("default", "high", "highest")
 
@@ -56,6 +57,16 @@ def set_matmul_precision(name: str) -> None:
 
 def get_matmul_precision() -> str:
     return _policy
+
+
+def resolve(precision=None) -> Optional[str]:
+    """A per-call ``precision=`` argument as a tier (gemm's compute-type
+    parity): ``None`` stays ``None`` (the tier in effect applies), a
+    spelling of :data:`TIERS` or an alias gives its tier, anything else
+    raises ``ValueError``."""
+    if precision is None:
+        return None
+    return canonical(precision)
 
 
 def _stack():

@@ -634,6 +634,72 @@ def test_csr_kernels_match_plain_on_card(card, dtype, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("m,k,n,trans_a,trans_b",
+                         [(300, 5000, 200, True, False),
+                          (64, 3072, 96, False, True),
+                          (40, 700, 33, False, False),
+                          (2048, 2100, 4096, True, True),
+                          (4096, 3072, 8192, True, False)])
+def test_gemm_tiers_on_card(card, tier, m, k, n, trans_a, trans_b):
+    """gemm's tiers on the card (cuBLAS; bf16 products with f32 results
+    taken in depth chunks, in one batch or in several where the results
+    are large, and a ragged tail): within the tier's error of an f64 product over |A|·|B|
+    ('highest' 1e-6, 'high' 1e-5, 'default' 1e-2), with TF32 turned on
+    around the call."""
+    from raft_tpu_torch.linalg import gemm
+
+    g = torch.Generator(device=card).manual_seed(m + k + n)
+    a = torch.randn((k, m) if trans_a else (m, k), generator=g, device=card)
+    b = torch.randn((n, k) if trans_b else (k, n), generator=g, device=card)
+    opa = a.T if trans_a else a
+    opb = b.T if trans_b else b
+    exact = opa.double() @ opb.double()
+    mass = opa.double().abs() @ opb.double().abs()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = gemm(None, a, b, trans_a=trans_a, trans_b=trans_b,
+                   precision=tier)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    tol = {"highest": 1e-6, "high": 1e-5, "default": 1e-2}[tier]
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert bool(((got.double() - exact).abs() <= tol * mass).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1024, 2048])
+def test_csr_spmm_wide_b_on_card(card, dtype, k):
+    """The keyed reductions' widths (B of 1024 columns and more): the
+    partials [n_chunks, k] of a hub row's chunk warps and the row groups'
+    column passes, within the band of the plain version and bitwise
+    equal run to run; and the keyed sum itself (a CSR [n_keys, m] of a
+    stable sort) at k columns."""
+    import importlib
+
+    from raft_tpu_torch.sparse import grid_spmv as tg
+
+    red = importlib.import_module("raft_tpu_torch.linalg.reduce")
+    indptr, indices, data, g = _card_csr(card, dtype, n_rows=600,
+                                         n_cols=1500, hub=3000)
+    b = torch.randn(1500, k, generator=g, device=card, dtype=dtype)
+    got = _counted("csr_spmm", lambda: tg._spmm(indptr, indices, data, b,
+                                                600))
+    again = tg._spmm(indptr, indices, data, b, 600)
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    _assert_csr_close(got, tg._spmm_plain(indptr, indices, data, b, 600),
+                      indptr, indices, data, b)
+    keys = torch.randint(0, 300, (1500,), generator=g, device=card)
+    kp, ki, kd = red._key_csr(keys, keys >= 0, 300, dtype)
+    sums = _counted("csr_spmm", lambda: red._sums_by_key(
+        b, keys, keys >= 0, 300)[0])
+    _assert_csr_close(sums, tg._spmm_plain(kp, ki, kd, b, 300), kp, ki, kd,
+                      b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_csr_spmm_all_rows_empty_on_card(card, dtype):
     from raft_tpu_torch.sparse import grid_spmv as tg

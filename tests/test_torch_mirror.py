@@ -28,8 +28,6 @@ import raft_tpu_torch
 GAPS = {
     # A5: minibatch k-means
     ("raft_tpu.cluster.kmeans", "kmeans_partial_fit"): "A5",
-    # A6: dense linalg
-    ("raft_tpu.util.precision", "resolve"): "A6",
     # A10: IVF-PQ's one-hot code counts
     ("raft_tpu.matrix.epilogue", "slot_onehot"): "A10",
     ("raft_tpu.matrix.epilogue", "onehot_pair"): "A10",
@@ -69,7 +67,6 @@ GAPS = {
     ("raft_tpu.util.input_validation", "expect_same_shape"): "A12",
     ("raft_tpu.util.input_validation", "expect_square"): "A12",
     ("raft_tpu.util.input_validation", "expect_dtype"): "A12",
-    ("raft_tpu.util.input_validation", "expect_positive"): "A12",
     ("raft_tpu.util.math", "round_down_to_multiple"): "A12",
     ("raft_tpu.util.math", "is_pow2"): "A12",
     ("raft_tpu.util.math", "next_pow2"): "A12",

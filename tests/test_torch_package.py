@@ -148,13 +148,120 @@ def test_device_resources_refuses_cpu_fallback():
                            torch.rand(4, generator=g2))
 
 
+LINALG_ENTRIES = [
+    "gemm", "gemv", "axpy", "dot", "transpose", "scal", "mean_squared_error",
+    "add", "add_scalar", "subtract", "subtract_scalar", "multiply",
+    "multiply_scalar", "divide", "divide_scalar", "power", "power_scalar",
+    "sqrt", "unary_op", "write_only_unary_op", "binary_op", "ternary_op",
+    "map", "map_offset", "map_reduce", "map_then_reduce", "reduce",
+    "coalesced_reduction", "strided_reduction", "reduce_rows_by_key",
+    "reduce_cols_by_key", "matrix_vector_op", "norm", "row_norm",
+    "col_norm", "normalize", "eig_dc", "eig_jacobi", "eig_sel", "qr_get_q",
+    "qr_get_qr", "svd_qr", "svd_eig", "svd_jacobi", "svd_reconstruction",
+    "rsvd_fixed_rank", "rsvd_perc", "lstsq_svd_qr", "lstsq_svd_jacobi",
+    "lstsq_eig", "lstsq_qr", "cholesky_r1_update", "pca_fit",
+    "pca_transform", "pca_inverse_transform", "pca_fit_transform",
+    "pca_partial_fit", "pca_finalize", "tsvd_fit", "tsvd_transform",
+    "tsvd_inverse_transform", "tsvd_fit_transform", "cal_eig",
+    "sign_flip_components", "make_kvp"]
+
+
+def _linalg_call(entry, r, arr):
+    """A call of a dense linalg entry point on small arrays (numpy with
+    no handle, as ``arr`` gives them for those that take none)."""
+    import numpy as np
+
+    from raft_tpu_torch import device_resources
+    from raft_tpu_torch import linalg as tl
+    from raft_tpu_torch.core import kvp
+
+    g = np.random.default_rng(0).normal(size=(6, 4)).astype(np.float32)
+    sq = g.T @ g + np.eye(4, dtype=np.float32)
+    keys = np.array([0, 1, 0, 2, 1, 0], np.int32)
+    cpu = device_resources("cpu")
+    fit = tl.pca_fit(cpu, torch.from_numpy(g), 2)
+    tfit = tl.tsvd_fit(cpu, torch.from_numpy(g), 2)
+    add = lambda x, y: x + y          # noqa: E731
+    state = tl.IncrementalPCAState(g.mean(0), sq, np.float32(6.0))
+    two = {"gemm": (g.T, g), "add": (g, g), "subtract": (g, g),
+           "multiply": (g, g), "divide": (g, g + 9), "power": (g, g),
+           "mean_squared_error": (g, g)}
+    if entry in two:
+        return getattr(tl, entry)(r, *two[entry])
+    if entry.endswith("_scalar"):
+        return getattr(tl, entry)(r, g, 2.0)
+    return {
+        "gemv": lambda: tl.gemv(r, g, g[0]),
+        "axpy": lambda: tl.axpy(r, 2.0, g, g),
+        "dot": lambda: tl.dot(r, g[0], g[1]),
+        "transpose": lambda: tl.transpose(r, g),
+        "scal": lambda: tl.scal(r, 2.0, g),
+        "sqrt": lambda: tl.sqrt(r, sq),
+        "unary_op": lambda: tl.unary_op(r, g, abs),
+        "write_only_unary_op": lambda: tl.write_only_unary_op(
+            r, (2, 3), lambda i: i * 2),
+        "binary_op": lambda: tl.binary_op(r, g, g, add),
+        "ternary_op": lambda: tl.ternary_op(r, g, g, g,
+                                            lambda x, y, z: x * y + z),
+        "map": lambda: tl.map(r, add, g, g),
+        "map_offset": lambda: tl.map_offset(r, lambda i, x: i + x, (6, 4),
+                                            g),
+        "map_reduce": lambda: tl.map_reduce(r, abs, None, 0.0, g),
+        "map_then_reduce": lambda: tl.map_then_reduce(r, abs, g),
+        "reduce": lambda: tl.reduce(r, g),
+        "coalesced_reduction": lambda: tl.coalesced_reduction(r, g),
+        "strided_reduction": lambda: tl.strided_reduction(r, g),
+        "reduce_rows_by_key": lambda: tl.reduce_rows_by_key(r, g, keys, 3),
+        "reduce_cols_by_key": lambda: tl.reduce_cols_by_key(r, g.T, keys, 3),
+        "matrix_vector_op": lambda: tl.matrix_vector_op(r, g, g[0], add),
+        "norm": lambda: tl.norm(r, g),
+        "row_norm": lambda: tl.row_norm(r, g),
+        "col_norm": lambda: tl.col_norm(r, g),
+        "normalize": lambda: tl.normalize(r, g),
+        "eig_dc": lambda: tl.eig_dc(r, sq),
+        "eig_jacobi": lambda: tl.eig_jacobi(r, sq),
+        "eig_sel": lambda: tl.eig_sel(r, sq, 2),
+        "qr_get_q": lambda: tl.qr_get_q(r, g),
+        "qr_get_qr": lambda: tl.qr_get_qr(r, g),
+        "svd_qr": lambda: tl.svd_qr(r, g),
+        "svd_eig": lambda: tl.svd_eig(r, g),
+        "svd_jacobi": lambda: tl.svd_jacobi(r, g),
+        "svd_reconstruction": lambda: tl.svd_reconstruction(
+            r, g, g[0], sq),
+        "rsvd_fixed_rank": lambda: tl.rsvd_fixed_rank(r, g, 2, p=1),
+        "rsvd_perc": lambda: tl.rsvd_perc(r, g, 0.5, p=1),
+        "lstsq_svd_qr": lambda: tl.lstsq_svd_qr(r, g, g[:, 0]),
+        "lstsq_svd_jacobi": lambda: tl.lstsq_svd_jacobi(r, g, g[:, 0]),
+        "lstsq_eig": lambda: tl.lstsq_eig(r, g, g[:, 0]),
+        "lstsq_qr": lambda: tl.lstsq_qr(r, g, g[:, 0]),
+        "cholesky_r1_update": lambda: tl.cholesky_r1_update(
+            r, np.eye(3, dtype=np.float32), np.array([1, 2, 9], np.float32),
+            3),
+        "pca_fit": lambda: tl.pca_fit(r, g, 2),
+        "pca_transform": lambda: tl.pca_transform(r, g, fit),
+        "pca_inverse_transform": lambda: tl.pca_inverse_transform(
+            r, g[:, :2], fit),
+        "pca_fit_transform": lambda: tl.pca_fit_transform(r, g, 2),
+        "pca_partial_fit": lambda: tl.pca_partial_fit(r, g, chunk_rows=4),
+        "pca_finalize": lambda: tl.pca_finalize(r, state, 2),
+        "tsvd_fit": lambda: tl.tsvd_fit(r, g, 2),
+        "tsvd_transform": lambda: tl.tsvd_transform(r, g, tfit),
+        "tsvd_inverse_transform": lambda: tl.tsvd_inverse_transform(
+            r, g[:, :2], tfit),
+        "tsvd_fit_transform": lambda: tl.tsvd_fit_transform(r, g, 2),
+        "cal_eig": lambda: tl.cal_eig(r, sq, 2),
+        "sign_flip_components": lambda: tl.sign_flip_components(arr(r, g)),
+        "make_kvp": lambda: kvp.make_kvp(arr(r, keys), arr(r, g[:, 0])),
+    }[entry]()
+
+
 @pytest.mark.parametrize("entry", ["pairwise_distance", "fused_l2_nn_argmin",
                                    "knn", "select_k", "radix_select_k",
                                    "insert_select", "knn_fused",
                                    "insert_drain_ref", "spmv", "spmm",
                                    "csr_from_scipy", "csr_from_numpy",
                                    "from_numpy", "eigsh", "partition",
-                                   "mst"])
+                                   "mst"] + LINALG_ENTRIES)
 def test_array_inputs_go_to_the_handle_device(entry):
     """An array with no handle goes to cuda:0: without CUDA that raises
     instead of running on the host; a CPU handle runs it here. The entry
@@ -208,7 +315,8 @@ def test_array_inputs_go_to_the_handle_device(entry):
             "from_numpy": lambda r: interop.from_numpy(a, res=r),
             "eigsh": lambda r: eigsh(ring.toarray(), k=2, res=r),
             "partition": lambda r: partition(r, ring, 2),
-            "mst": lambda r: mst(r, ring).weights}[entry]
+            "mst": lambda r: mst(r, ring).weights}.get(
+                entry, lambda r: _linalg_call(entry, r, arr))
     if torch.cuda.is_available():
         out = call(None)
         first = out[0] if isinstance(out, tuple) else out
