@@ -16,8 +16,9 @@ just after:
 
 - k-means (Lloyd) on 1,000,000 x 128 f32 with k = 1024 at tier 'high',
   then the distance embedding of the data;
-- pairwise_distance at BASELINE config 1's 5000 x 50: the five expanded
-  metrics and the seven unexpanded ones;
+- pairwise_distance at BASELINE config 1's 5000 x 50 (the port's
+  ``random.make_blobs``, 10 centers): the five expanded metrics and the
+  seven unexpanded ones;
 - brute-force kNN, db 1,048,576 x 128 f32, 4096 queries, tier 'high':
   k = 64 and k = 256 (the fused route), k = 1024 (the radix route); l1
   at k = 64 (the radix route through the unexpanded tile, 32 chunks),
@@ -94,7 +95,25 @@ just after:
   the NCCL group, ``search_mnmg`` at 2^18 x 64, 256 lists, nprobe 16,
   k = 10 and 64, bitwise ``ivf_flat.search``, ``search_local`` +
   ``merge_pool`` bitwise ``search_mnmg``, and ``shrink_mnmg`` to one
-  survivor equal to a fresh ``build_mnmg``.
+  survivor equal to a fresh ``build_mnmg``;
+- the stats path (the ``stats`` line), the cuML evaluation workflow at
+  config 3's shape: ``random.make_blobs`` 1,000,000 x 128 f32, 1024
+  centers (exact round-robin counts, the noise's per-cluster means within
+  6 sigma and its std within 1%), ``cluster.kmeans_fit`` on it (k = 1024,
+  'high', 10 iterations from k-means||), the six external scores of the
+  fit against the blobs' labels (within 1e-12 of f64 numpy), ``meanvar``
+  and ``cov`` (within REL of f64), histograms of the labels and, through
+  a binner, of the data at 20,000 bins (equal to ``np.bincount``); on a
+  65,536-row ``matrix.sample_rows`` sample, ``silhouette_score`` (the
+  unexpanded tile's distances, ``csr_spmm``'s keyed sums; within 1e-5 of
+  f64, its time split into the two), ``trustworthiness_score`` of a
+  16-component PCA embedding (the unexpanded tile, the insertion top-k;
+  within 1e-7 of f64), each of those kernels against its plain version
+  at one chunk's or block's shape (the numbers go to their rows of the
+  kernels line as ``stats_shapes``), ``neighborhood_recall`` of ``knn`` at
+  'default' against 'highest'; and ``label.merge_labels`` of the fit's
+  and the blobs' labels over all 1M rows (every row and 1% masked) equal
+  to scipy's components, with its rounds.
 
 The CSR kernels are first held against their plain versions on a hub
 row of 100,000 entries, empty rows, an empty matrix, a stored zero
@@ -231,6 +250,13 @@ PQ_SWEEP = ((1, 0), (4, 0), (16, 0), (16, 40), PQ_FULL)
 PQ_LUT_Q = 16                           # queries of the LUT-sum check
 PQ_CHUNK = 1 << 16                      # ivf_pq._ENCODE_CHUNK
 MNMG_IVF_N, MNMG_IVF_LISTS, MNMG_IVF_NPROBE = 1 << 18, 256, 16
+# the stats phase: make_blobs at config 3's shape, the fit, its scores
+STATS_M, STATS_D, STATS_K = MAIN_M, MAIN_K, MAIN_N
+STATS_SAMPLE, STATS_EMB, STATS_NN, STATS_BATCH = 65536, 16, 10, 512
+STATS_HIST_BINS = 20000
+# the sample scores against f64: about 100x the H100 gaps (silhouette
+# 8e-8, trustworthiness 3e-10; a trustworthiness rank unit is 2.3e-11)
+STATS_SIL_TOL, STATS_TRUST_TOL = 1e-5, 1e-7
 OUT_DIR = "chiprun_out"
 RECORD = {}
 
@@ -604,9 +630,11 @@ def pairwise_phase(res, dev):
 
     from raft_tpu_torch import kernels
     from raft_tpu_torch.distance import DistanceType, pairwise_distance
+    from raft_tpu_torch.random import RngState, make_blobs
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    x = blobs(gen, dev, PAIRWISE_M, PAIRWISE_K, 10)
+    # BASELINE config 1: make_blobs 5000 x 50, 10 centers
+    x, _, _ = make_blobs(res, RngState(SEED + 3), PAIRWISE_M, PAIRWISE_K,
+                         n_clusters=10)
     xn = (x.double() ** 2).sum(1)
     out = {}
     for name in ("L2Expanded", "L2SqrtExpanded", "CosineExpanded",
@@ -2394,9 +2422,11 @@ def unexpanded_pairwise_phase(res, dev):
     from raft_tpu_torch import kernels
     from raft_tpu_torch.distance import DistanceType, pairwise_distance
     from raft_tpu_torch.linalg import contractions as tc
+    from raft_tpu_torch.random import RngState, make_blobs
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
-    x = blobs(gen, dev, PAIRWISE_M, PAIRWISE_K, 10)
+    # BASELINE config 1: make_blobs 5000 x 50, 10 centers
+    x, _, _ = make_blobs(res, RngState(SEED + 15), PAIRWISE_M, PAIRWISE_K,
+                         n_clusters=10)
     x[:, :5] = torch.round(x[:, :5])            # some exact matches
     k = PAIRWISE_K
     out, total, err = {}, 0, 0.0
@@ -4472,11 +4502,14 @@ def ivf_breakdown(fn, reps=3, top=6):
     busy = busy_us(events)
     by_name = {}
     for name, s, e in events:
-        by_name[name] = by_name.get(name, 0.0) + (e - s) / reps / 1e3
+        # a name's first 160 characters: templated kernels share their
+        # first 80 and differ further on
+        key = name[:160]
+        by_name[key] = by_name.get(key, 0.0) + (e - s) / reps / 1e3
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return dict(busy_ms=busy / reps / 1e3, span_ms=span / reps / 1e3,
                 idle_share=1.0 - busy / span, device_ops=len(events) // reps,
-                top_ops_ms={name[:80]: ms for name, ms in ops})
+                top_ops_ms=dict(ops))
 
 
 def ivf_counts(kernels, part, names):
@@ -4884,6 +4917,539 @@ def ivf_phase(res, dev):
         launches, argmin_row, lloyd_row
 
 
+# ---------------------------------------------------------------------------
+# stats: generate data, fit it and score the fit (the cuML evaluation
+# workflow) at config 3's shape
+# ---------------------------------------------------------------------------
+
+
+def stats_part(kernels, launches, part, fn):
+    """``fn()`` once, with the launch counts set to 0 just before it and
+    read just after into ``launches[part]``. Returns ``fn()``'s value and
+    its wall seconds (synchronized)."""
+    import torch
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches[part] = {n: c for n, c in kernels.launch_counts().items() if c}
+    return out, wall
+
+
+def stats_generate(res, kernels, launches, out):
+    """make_blobs at 1M x 128, 1024 centers: exact round-robin counts,
+    each cluster's noise mean within 6 sigma / sqrt(count) of 0 in every
+    dimension, the overall noise std within 1% of 1.0."""
+    import torch
+
+    from raft_tpu_torch import random as trand
+
+    (x, truth, centers), wall = stats_part(
+        kernels, launches, "generate",
+        lambda: trand.make_blobs(res, trand.RngState(SEED + 40), STATS_M,
+                                 STATS_D, n_clusters=STATS_K,
+                                 cluster_std=1.0, center_box=(-10.0, 10.0)))
+    counts = torch.bincount(truth.long(), minlength=STATS_K)
+    want = torch.bincount(torch.arange(STATS_M, device=x.device) % STATS_K,
+                          minlength=STATS_K)
+    check(torch.equal(counts, want), "make_blobs: labels not round-robin")
+    check(int(counts.min()) == STATS_M // STATS_K
+          and int(counts.max()) == -(-STATS_M // STATS_K),
+          "make_blobs: counts outside 976..977")
+    lo, hi = float(centers.min()), float(centers.max())
+    check(-10.0 <= lo and hi < 10.0, "make_blobs: centers outside the box")
+    noise = (x - centers[truth.long()]).double()
+    means = torch.zeros(STATS_K, STATS_D, dtype=torch.float64,
+                        device=x.device).index_add_(0, truth.long(), noise)
+    means /= counts.double()[:, None]
+    z = float((means.abs() * counts.double().sqrt()[:, None]).max())
+    std = float(noise.std())
+    del noise
+    check(z <= 6.0, f"make_blobs: a cluster's noise mean at {z} sigma")
+    check(abs(std - 1.0) <= 0.01, f"make_blobs: noise std {std}")
+    out["generate"] = dict(shape=[STATS_M, STATS_D], n_clusters=STATS_K,
+                           seconds=wall, counts=[int(counts.min()),
+                                                 int(counts.max())],
+                           max_mean_sigma=z, noise_std=std)
+    return x, truth
+
+
+def stats_scores_f64(a, b):
+    """The six external scores in f64 numpy from a host np.bincount
+    contingency table, in their textbook forms."""
+    import numpy as np
+
+    na, nb = int(a.max()) + 1, int(b.max()) + 1
+    c = np.bincount(a * nb + b, minlength=na * nb).reshape(na, nb).astype(
+        np.float64)
+    n = c.sum()
+
+    def comb(v):
+        return v * (v - 1.0) / 2.0
+
+    sij, sa, sb, tot = (comb(c).sum(), comb(c.sum(1)).sum(),
+                        comb(c.sum(0)).sum(), comb(n))
+    expected = sa * sb / tot
+    pi, pj = c.sum(1) / n, c.sum(0) / n
+    nz = c > 0
+    pij = c[nz] / n
+    mi = float(np.sum(pij * np.log(pij / np.outer(pi, pj)[nz])))
+
+    def ent(p):
+        p = p[p > 0]
+        return -float(np.sum(p * np.log(p)))
+
+    hom = mi / ent(pi)                  # 1 - H(A|B) / H(A)
+    com = mi / ent(pj)
+    return dict(rand_index=(tot + 2.0 * sij - sa - sb) / tot,
+                adjusted_rand_index=(sij - expected)
+                / (0.5 * (sa + sb) - expected),
+                mutual_info_score=mi, homogeneity_score=hom,
+                completeness_score=com,
+                v_measure=2.0 * hom * com / (hom + com))
+
+
+def stats_external(truth, fit, launches, kernels, out):
+    """The six external scores of the fit against the blobs' labels on
+    the card (a 1024 x 1024 contingency), each within 1e-12 relative of
+    the f64 numpy forms, and timed (mean of 3 calls after this one)."""
+    import torch
+
+    from raft_tpu_torch import stats as tstats
+
+    names = ("rand_index", "adjusted_rand_index", "mutual_info_score",
+             "homogeneity_score", "completeness_score", "v_measure")
+    got, _ = stats_part(kernels, launches, "scores",
+                        lambda: {n: float(getattr(tstats, n)(truth, fit))
+                                 for n in names})
+    want = stats_scores_f64(truth.cpu().numpy(), fit.cpu().numpy())
+    row = {}
+    for n in names:
+        err = abs(got[n] - want[n]) / abs(want[n])
+        check(err <= 1e-12, f"stats {n}: {got[n]} against f64 {want[n]}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            float(getattr(tstats, n)(truth, fit))
+        row[n] = dict(value=got[n], f64=want[n], rel_err=err,
+                      ms=(time.perf_counter() - t0) / 3 * 1e3)
+    out["external_scores"] = row
+
+
+def stats_binner(v, rows, cols):
+    """The data's 20,000-bin grid: (v + 20) * 500, truncated."""
+    return (v + 20.0) * 500.0
+
+
+def stats_moments(x, truth, launches, kernels, out):
+    """meanvar and cov ('high') of the data against f64 on the card within
+    REL of the norms; histograms of the labels (1024 bins) and of the data
+    through a binner (20,000 bins, 128 columns) equal to np.bincount."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import stats as tstats
+    from raft_tpu_torch.util import precision as tprec
+
+    def run():
+        mu, var = tstats.meanvar(x)
+        with tprec.scope("high"):
+            cov = tstats.cov(x)
+        return (mu, var, cov, tstats.histogram(truth, STATS_K),
+                tstats.histogram(x, STATS_HIST_BINS, binner=stats_binner))
+
+    (mu, var, cov, h_lab, h_x), wall = stats_part(kernels, launches,
+                                                  "moments", run)
+    x64 = x.double()
+    mu64 = x64.mean(0)
+    scale = x64.abs().mean(0)
+    x64 -= mu64
+    var64 = (x64 * x64).sum(0) / (STATS_M - 1)
+    cov64 = x64.T @ x64 / (STATS_M - 1)
+    x64.abs_()
+    mass = x64.T @ x64 / (STATS_M - 1)
+    del x64
+    err_mu = float(((mu.double() - mu64).abs() / scale).max())
+    err_var = float(((var.double() - var64).abs() / var64).max())
+    err_cov = float(((cov.double() - cov64).abs() / mass).max())
+    check(err_mu <= REL, f"meanvar: mean off by {err_mu} of mean |x|")
+    check(err_var <= REL, f"meanvar: variance off by {err_var}")
+    check(err_cov <= REL, f"cov 'high': off by {err_cov} of |xc|'|xc|")
+    check(np.array_equal(h_lab.cpu().numpy()[:, 0],
+                         np.bincount(truth.cpu().numpy(),
+                                     minlength=STATS_K)),
+          "histogram of the labels != np.bincount")
+    xh = x.cpu().numpy()
+    bins = ((xh + np.float32(20.0)) * np.float32(500.0)).astype(np.int64)
+    keep = (bins >= 0) & (bins < STATS_HIST_BINS)
+    bins *= STATS_D
+    bins += np.arange(STATS_D)[None, :]
+    want = np.bincount(bins[keep], minlength=STATS_HIST_BINS * STATS_D)
+    check(np.array_equal(h_x.cpu().numpy().ravel(), want),
+          "histogram with a binner != np.bincount")
+    del xh, bins, keep
+    out["moments"] = dict(seconds=wall, mean_err_over_mean_abs=err_mu,
+                          var_rel_err=err_var, cov_err_over_mass=err_cov,
+                          hist_bins=[STATS_K, STATS_HIST_BINS],
+                          hist_counted=int(want.sum()))
+
+
+def silhouette_f64(s, lab, k, chunk=4096):
+    """The silhouette in f64 from torch ops: chunked f64 distances and
+    index_add_ cluster sums."""
+    import torch
+
+    s64 = s.double()
+    n = s64.shape[0]
+    sq = (s64 * s64).sum(1)
+    counts = torch.bincount(lab, minlength=k).double()
+    total = 0.0
+    for i in range(0, n, chunk):
+        sb = s64[i:i + chunk]
+        d = (sq[i:i + chunk, None] + sq[None, :] - 2.0 * sb @ s64.T
+             ).clamp_min_(0.0)
+        sums = torch.zeros(sb.shape[0], k, dtype=torch.float64,
+                           device=s.device).index_add_(1, lab, d)
+        del d
+        lb = lab[i:i + chunk]
+        own = counts[lb]
+        at = torch.arange(sb.shape[0], device=s.device)
+        a = sums[at, lb] / (own - 1).clamp_min(1)
+        other = sums / counts.clamp_min(1)[None, :]
+        other[at, lb] = float("inf")
+        other[:, counts == 0] = float("inf")
+        b = other.min(1).values
+        sil = torch.where(own > 1, (b - a) / torch.maximum(a, b), 0.0)
+        total += float(sil.sum())
+    return total / n
+
+
+def trust_f64(s, emb, k, batch):
+    """Trustworthiness in f64 from torch ops: f64 distances, the k
+    nearest by a stable sort, ranks by strict comparison."""
+    import torch
+
+    s64, e64 = s.double(), emb.double()
+    n = s64.shape[0]
+    sq, esq = (s64 * s64).sum(1), (e64 * e64).sum(1)
+    pen = 0.0
+    for i in range(0, n, batch):
+        rows = torch.arange(min(batch, n - i), device=s.device)
+        de = (esq[i:i + batch, None] + esq[None, :]
+              - 2.0 * e64[i:i + batch] @ e64.T).clamp_min_(0.0)
+        de[rows, i + rows] = float("inf")
+        nn = torch.sort(de, dim=1, stable=True).indices[:, :k]
+        do = (sq[i:i + batch, None] + sq[None, :]
+              - 2.0 * s64[i:i + batch] @ s64.T).clamp_min_(0.0)
+        self_d = do[rows, i + rows]
+        dnn = torch.gather(do, 1, nn)
+        rank = ((do[:, None, :] < dnn[:, :, None]).sum(2)
+                - (self_d[:, None] < dnn).long() + 1)
+        pen += float((rank - k).clamp_min(0).sum())
+    return 1.0 - pen * 2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0))
+
+
+def stats_kernel_parity(res, s, lab, emb):
+    """The sample scores' kernels at the shapes those calls give them,
+    each against its plain version on the card: one silhouette chunk's
+    distances (unexpanded_tile l2un, 4096 x 65,536 x 128) and its keyed
+    column sums (csr_spmm, 1024 keys over 65,536 columns, against the
+    plain CSR product and an f64 index_add_ sum), one trustworthiness
+    block's distances in both spaces (L2SqrtUnexpanded, 512 x 65,536 at
+    128 and 16 dims) and its top 10 by select_k WARPSORT_FILTERED
+    (topk_insert, exactly the stable key sort, and the kernel bit for bit
+    its plain version). Returns the numbers by kernel."""
+    import importlib
+
+    import torch
+
+    from raft_tpu_torch.distance import DistanceType, pairwise_distance
+    from raft_tpu_torch.linalg import contractions as tc
+    from raft_tpu_torch.linalg import reduce_cols_by_key
+    from raft_tpu_torch.matrix import SelectAlgo, _topk_order, select_k
+    from raft_tpu_torch.matrix import topk_insert as tti
+    from raft_tpu_torch.sparse import grid_spmv as tg
+
+    red = importlib.import_module("raft_tpu_torch.linalg.reduce")
+    n = s.shape[0]
+
+    def distances(x, y, metric, what):
+        got = pairwise_distance(res, x, y, metric=metric)
+        ref = lambda: UNEXP_DISTANCES[metric.name][1](
+            tc.unexpanded_ref(x, y, "l2un"), x.shape[1])
+        want = ref()
+        e = (got - want).abs()
+        check(bool((e <= unexp_rel(x.shape[1]) * want.abs() + 1e-6).all()),
+              f"{what}: unexpanded_tile against plain, max err "
+              f"{float(e.max())}")
+        shape = [x.shape[0], n, x.shape[1]]
+        return got, dict(
+            shape=shape, metric=metric.name, max_abs_err=float(e.max()),
+            bitwise_to_plain=torch.equal(got, want),
+            ms=cuda_ms(lambda: pairwise_distance(res, x, y, metric=metric),
+                       3),
+            plain_ms=cuda_ms(ref, 1),
+            bound_ms=unexp_bound(*shape, UNEXP_INSTR["l2un"])[0])
+
+    out = {}
+    d0, out["silhouette_distances"] = distances(
+        s[:4096], s, DistanceType.L2Unexpanded, "silhouette chunk")
+    sums = reduce_cols_by_key(res, d0, lab, STATS_K)
+    b = d0.T.contiguous()
+    del d0
+    ind = red._key_csr(lab, torch.ones_like(lab, dtype=torch.bool), STATS_K,
+                       torch.float32)
+    want = tg._spmm_plain(*ind, b, STATS_K)
+    spmm_err = check_csr_product(sums.T.contiguous(), want, *ind, b,
+                                 "silhouette keyed sums")
+    # the f64 sum is grouped by index_add_, not through the CSR; the
+    # distances are >= 0, so the sum is its own mass
+    f64 = torch.zeros(STATS_K, b.shape[1], dtype=torch.float64,
+                      device=b.device).index_add_(0, lab, b.double())
+    e64 = float((sums.T.double() - f64).abs().max())
+    check(bool(((sums.T.double() - f64).abs()
+                <= SPARSE_REL * f64 + SPARSE_REL).all()),
+          f"silhouette keyed sums against the f64 sum: {e64}")
+    out["silhouette_keyed_sums"] = dict(
+        shape=[STATS_K, n, b.shape[1]], max_abs_err=spmm_err,
+        f64_max_abs_err=e64,
+        ms=cuda_ms(lambda: tg._spmm(*ind, b, STATS_K), 5),
+        plain_ms=cuda_ms(lambda: tg._spmm_plain(*ind, b, STATS_K), 1),
+        bound_ms=spmv_bound(n, STATS_K, n, b.shape[1], 8)[0])
+    del sums, b, want, f64
+    rows = torch.arange(STATS_BATCH, device=s.device)
+    de, out["trust_embedded_distances"] = distances(
+        emb[:STATS_BATCH], emb, DistanceType.L2SqrtUnexpanded,
+        "trustworthiness embedded block")
+    do, out["trust_original_distances"] = distances(
+        s[:STATS_BATCH], s, DistanceType.L2SqrtUnexpanded,
+        "trustworthiness original block")
+    del do
+    de[rows, rows] = float("inf")
+    vals, idx = select_k(res, de, STATS_NN, select_min=True,
+                         algo=SelectAlgo.WARPSORT_FILTERED)
+    wv, wi = _topk_order.topk(de, STATS_NN, largest=False)
+    check(torch.equal(idx.long(), wi) and torch.equal(vals, wv),
+          "trustworthiness block's select_k differs from the stable key "
+          "sort")
+    exact_equal(tti._topk_insert(de, STATS_NN, True),
+                tti._insert_plain(de, STATS_NN, True),
+                "topk_insert at the trustworthiness block")
+    out["trust_topk"] = dict(
+        shape=list(de.shape), k=STATS_NN, max_abs_err=0.0,
+        ms=cuda_ms(lambda: tti._topk_insert(de, STATS_NN, True), 5),
+        plain_ms=cuda_ms(lambda: tti._insert_plain(de, STATS_NN, True), 3),
+        library_ms=cuda_ms(lambda: torch.topk(de, STATS_NN, largest=False),
+                           5),
+        bound_ms=(4 * de.numel() + 8 * STATS_BATCH * STATS_NN)
+        / PEAK_BYTES * 1e3)
+    return out
+
+
+def stats_sample_scores(res, x, fit, launches, kernels, out):
+    """On a 65,536-row sample_rows sample with its fit labels: the
+    silhouette (n_clusters 1024, 'high') against f64 within
+    STATS_SIL_TOL, its time split into distances and keyed sums; the
+    trustworthiness of a 16-component PCA embedding (n_neighbors 10,
+    batch 512) against f64 within STATS_TRUST_TOL; their kernels against
+    their plain versions at these shapes (stats_kernel_parity);
+    neighborhood_recall of knn at 'default' against knn at
+    'highest' (k = 10, with distances) against a host set computation."""
+    import numpy as np
+
+    from raft_tpu_torch import linalg as tlin
+    from raft_tpu_torch import stats as tstats
+    from raft_tpu_torch.distance import DistanceType, pairwise_distance
+    from raft_tpu_torch.matrix import sample_rows
+    from raft_tpu_torch.neighbors import knn
+    from raft_tpu_torch.random import RngState
+    from raft_tpu_torch.util import precision as tprec
+
+    def sample():
+        # two draws from equal states pick the same rows
+        s = sample_rows(res, RngState(SEED + 41), x, STATS_SAMPLE)
+        lab = sample_rows(res, RngState(SEED + 41), fit[:, None],
+                          STATS_SAMPLE)[:, 0]
+        return s, lab
+
+    (s, lab), _ = stats_part(kernels, launches, "sample", sample)
+    check(tuple(s.shape) == (STATS_SAMPLE, STATS_D), "sample_rows: shape")
+    with tprec.scope("high"):
+        sil, sil_wall = stats_part(
+            kernels, launches, "silhouette",
+            lambda: float(tstats.silhouette_score(res, s, lab, STATS_K)))
+        for name in ("unexpanded_tile", "csr_spmm"):
+            check(launches["silhouette"].get(name, 0) > 0,
+                  f"silhouette never launched {name}")
+        sil64 = silhouette_f64(s, lab, STATS_K)
+        check(abs(sil - sil64) <= STATS_SIL_TOL,
+              f"silhouette {sil} against f64 {sil64}")
+        chunks = [s[i:i + 4096] for i in range(0, STATS_SAMPLE, 4096)]
+        metric = DistanceType.L2Unexpanded
+        sil_ms = cuda_ms(lambda: tstats.silhouette_score(res, s, lab,
+                                                         STATS_K), 1)
+        dist_ms = cuda_ms(lambda: [pairwise_distance(res, c, s,
+                                                     metric=metric)
+                                   for c in chunks], 1)
+        d0 = pairwise_distance(res, chunks[0], s, metric=metric)
+        keyed_ms = cuda_ms(lambda: tlin.reduce_cols_by_key(
+            res, d0, lab, STATS_K), 3)
+        del d0
+        (emb, _), pca_wall = stats_part(
+            kernels, launches, "pca",
+            lambda: tlin.pca_fit_transform(res, s, STATS_EMB))
+        tw, tw_wall = stats_part(
+            kernels, launches, "trustworthiness",
+            lambda: float(tstats.trustworthiness_score(
+                res, s, emb, STATS_NN, batch_size=STATS_BATCH)))
+        check(launches["trustworthiness"].get("unexpanded_tile", 0) > 0,
+              "trustworthiness never launched unexpanded_tile")
+        tw64 = trust_f64(s, emb, STATS_NN, STATS_BATCH)
+        check(abs(tw - tw64) <= STATS_TRUST_TOL,
+              f"trustworthiness {tw} against f64 {tw64}")
+        parity = stats_kernel_parity(res, s, lab, emb)
+        # where each call's device time goes (a trace of one call)
+        sil_trace = ivf_breakdown(lambda: tstats.silhouette_score(
+            res, s, lab, STATS_K), reps=1, top=10)
+        tw_trace = ivf_breakdown(lambda: tstats.trustworthiness_score(
+            res, s, emb, STATS_NN, batch_size=STATS_BATCH), reps=1, top=10)
+
+    def recall():
+        with tprec.scope("default"):
+            dd, idd = knn(res, s, s, STATS_NN)
+        with tprec.scope("highest"):
+            dh, idh = knn(res, s, s, STATS_NN)
+        return dd, idd, dh, idh, float(tstats.neighborhood_recall(
+            idd, idh, dd, dh))
+
+    (dd, idd, dh, idh, rec), rec_wall = stats_part(kernels, launches,
+                                                   "recall", recall)
+    i1, i2 = idd.cpu().numpy(), idh.cpu().numpy()
+    d1, d2 = dd.cpu().numpy(), dh.cpu().numpy()
+    hits = ((i1[:, :, None] == i2[:, None, :])
+            | (np.abs(d1[:, :, None] - d2[:, None, :]) <= 1e-4)).any(2)
+    rec_host = float(hits.sum()) / hits.size
+    check(rec == rec_host, f"neighborhood_recall {rec} != host {rec_host}")
+    out["sample"] = dict(
+        rows=STATS_SAMPLE,
+        silhouette=dict(value=sil, f64=sil64, ms=sil_ms, wall_s=sil_wall,
+                        distances_ms=dist_ms,
+                        keyed_sums_ms=keyed_ms * len(chunks),
+                        keyed_sum_chunk_ms=keyed_ms,
+                        trace=sil_trace,
+                        distances_bound_ms=unexp_bound(
+                            STATS_SAMPLE, STATS_SAMPLE, STATS_D,
+                            UNEXP_INSTR["l2un"])[0]),
+        trustworthiness=dict(value=tw, f64=tw64, wall_s=tw_wall,
+                             trace=tw_trace,
+                             pca_s=pca_wall, n_components=STATS_EMB,
+                             distances_bound_ms=unexp_bound(
+                                 STATS_SAMPLE, STATS_SAMPLE,
+                                 STATS_D + STATS_EMB,
+                                 UNEXP_INSTR["l2un"])[0]),
+        recall=dict(value=rec, host=rec_host, k=STATS_NN, wall_s=rec_wall),
+        kernel_parity=parity)
+    return parity
+
+
+def merge_expected(a, b, mask):
+    """Each point's smallest label in its component of the graph on the
+    labels whose edges are the masked pairs (scipy)."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    nl = int(max(a.max(), b.max())) + 1
+    g = sp.coo_matrix((np.ones(int(mask.sum())), (a[mask], b[mask])),
+                      shape=(nl, nl))
+    _, comp = connected_components(g, directed=False)
+    lo = np.full(comp.max() + 1, nl)
+    np.minimum.at(lo, comp, np.arange(nl))
+    return lo[comp[a]]
+
+
+def stats_merge(truth, fit, launches, kernels, out):
+    """merge_labels of (fit + 1, truth + 1) over all 1M rows, with every
+    row masked and with 1% masked, against scipy's components; the
+    rounds are the checked call's, from its label.merge_labels event."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import label as tlabel
+    from raft_tpu_torch.core import trace
+
+    a = (fit + 1).to(torch.int32)
+    b = (truth + 1).to(torch.int32)
+    gen = torch.Generator(device=a.device).manual_seed(SEED + 42)
+    masks = {"all": torch.ones(STATS_M, dtype=torch.bool, device=a.device),
+             "1%": torch.rand(STATS_M, generator=gen, device=a.device) < 0.01}
+    row = {}
+    for name, mask in masks.items():
+        trace.clear_events()
+        got, wall = stats_part(kernels, launches, f"merge_{name}",
+                               lambda: tlabel.merge_labels(a, b, mask))
+        (event,) = trace.events("label.merge_labels")
+        want = merge_expected(a.cpu().numpy(), b.cpu().numpy(),
+                              mask.cpu().numpy())
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"merge_labels ({name} masked) != scipy's components")
+        row[name] = dict(seconds=wall, rounds=event["rounds"],
+                         components=int(np.unique(want).size))
+    out["merge_labels"] = row
+
+
+def stats_phase(res, dev):
+    """Generate data, fit it and score the fit at config 3's shape
+    (1,000,000 x 128 f32, 1024 centers), each part with the launch
+    counts set to 0 just before it and read just after. Returns the
+    phase's launches by kernel and the kernels' numbers at the sample
+    scores' shapes (stats_kernel_parity)."""
+    import torch
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.cluster import kmeans as tk
+    from raft_tpu_torch.util import precision as tprec
+
+    t0 = time.perf_counter()
+    parts, out = {}, {}
+    x, truth = stats_generate(res, kernels, parts, out)
+    params = tk.KMeansParams(n_clusters=STATS_K, max_iter=MAIN_ITERS,
+                             tol=0.0, seed=SEED)
+
+    def fit():
+        with tprec.scope("high"):
+            return tk.kmeans_fit(res, params, x)
+
+    (_, inertia, fit_lab, n_iter), fit_wall = stats_part(kernels, parts,
+                                                         "fit", fit)
+    # tol 0: it stops early only where an iteration leaves the inertia
+    check(1 <= n_iter <= MAIN_ITERS, f"stats fit: n_iter {n_iter}")
+    check(bool(torch.isfinite(inertia)), "stats fit: inertia not finite")
+    out["fit"] = dict(seconds=fit_wall, n_iter=n_iter,
+                      inertia=float(inertia))
+    fit_lab, truth = fit_lab.long(), truth.long()
+    stats_external(truth, fit_lab, parts, kernels, out)
+    stats_moments(x, truth, parts, kernels, out)
+    parity = stats_sample_scores(res, x, fit_lab, parts, kernels, out)
+    stats_merge(truth, fit_lab, parts, kernels, out)
+    launches = {}
+    for counts in parts.values():
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+    for name in ("unexpanded_tile", "fused_lloyd", "csr_spmm"):
+        check(launches.get(name, 0) > 0, f"stats phase never launched {name}")
+    out["launches"] = launches
+    out["launches_by_part"] = {p: c for p, c in parts.items() if c}
+    out["seconds"] = time.perf_counter() - t0
+    emit("stats", **out)
+    del x
+    torch.cuda.empty_cache()
+    return launches, parity
+
+
 def main():
     import torch
 
@@ -5033,6 +5599,21 @@ def main():
             row["mnmg_fit_max_abs_err"] = mnmg_errs[row["name"]]
             row["max_abs_err"] = max(row["max_abs_err"],
                                      mnmg_errs[row["name"]])
+    stats_launches, stats_parity = stats_phase(res, dev)
+    for row in table:
+        if stats_launches.get(row["name"], 0):
+            row["stats_launches"] = stats_launches[row["name"]]
+            row["launches"] += stats_launches[row["name"]]
+    for name, parts in (("unexpanded_tile", ("silhouette_distances",
+                                             "trust_embedded_distances",
+                                             "trust_original_distances")),
+                        ("csr_spmm", ("silhouette_keyed_sums",)),
+                        ("topk_insert", ("trust_topk",))):
+        row = next(r for r in table if r["name"] == name)
+        row["stats_shapes"] = {p: stats_parity[p] for p in parts}
+        row["max_abs_err"] = max([row["max_abs_err"]]
+                                 + [stats_parity[p]["max_abs_err"]
+                                    for p in parts])
     check(len(table) == len(kernels.REGISTRY)
           and {r["name"] for r in table} == set(kernels.REGISTRY),
           "the kernels line does not list every registered kernel")

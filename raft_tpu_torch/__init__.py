@@ -21,11 +21,16 @@ distance            : pairwise_distance (expanded metrics), fused_l2_nn_argmin
 cluster             : k-means (Lloyd, k-means|| init)
 neighbors           : brute-force kNN (fused top-k, radix and scan routes)
 matrix              : select_k (radix, insertion, tiled, stream, direct),
-                      argmin, argmax
+                      argmin, argmax, gather, linewise_op, matrix.ops
 sparse              : CSR/COO types, convert, op, SpMV/SpMM (CSR kernels),
                       linalg (Laplacian, symmetrize, ...), Lanczos eigsh
 spectral            : partition, modularity_maximization, analyzers
-random              : RngState, rmat_rectangular_gen
+random              : RngState (with the key API), the distributions,
+                      sampling, permute, make_blobs, make_regression,
+                      multi_variable_gaussian, rmat_rectangular_gen
+label               : classlabels, merge_labels
+stats               : moments, histogram, information criteria, the
+                      clustering scores, silhouette, trustworthiness
 comms               : MeshComms, build_mesh_comms, comms.device (NCCL for
                       CUDA tensors, gloo for CPU tensors), bootstrap, the
                       self-test battery; with core.{logger, trace,

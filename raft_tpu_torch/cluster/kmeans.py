@@ -237,7 +237,7 @@ def _init_centroids(params: KMeansParams, x, centroids,
                                              dtype=x.dtype).clone()
     if params.init == KMeansInit.ARRAY:
         raise ValueError("init=ARRAY requires centroids")
-    gen = RngState(seed=params.seed).generator(x.device)
+    gen = RngState(seed=params.seed).key(x.device)
     if params.init == KMeansInit.RANDOM:
         idx = torch.randperm(x.shape[0], generator=gen,
                              device=x.device)[:params.n_clusters]

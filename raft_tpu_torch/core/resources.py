@@ -81,7 +81,7 @@ class DeviceResources:
 
     def generator(self) -> torch.Generator:
         """A fresh generator on this device from the handle's state."""
-        return self.rng_state.next_generator(self.device)
+        return self.rng_state.next_key(self.device)
 
     def get_comms(self):
         return get_comms(self)

@@ -5,7 +5,7 @@ not Vᵀ; ``svd_eig`` takes the Gram matrix's ``eigh``; ``svd_jacobi`` is
 an alias of ``svd_qr``, as in the reference. The randomized SVD keeps
 the reference's range finder (a Gaussian sketch, power iterations with
 QR re-orthonormalization, a small exact SVD in the subspace). Its sketch
-comes from ``RngState.next_generator`` on the matrix's device: the
+comes from ``RngState.next_key`` on the matrix's device: the
 stream is torch's, not JAX's (ROADMAP.md, queue C "RNG streams
 differ"), so the two packages agree on the singular values, not bit for
 bit.
@@ -85,7 +85,7 @@ def rsvd_fixed_rank(res, matrix, k: int, p: int = 10, n_iter: int = 2,
     m, n = a.shape
     state = state or RngState(seed=0)
     ell = min(k + p, min(m, n))
-    omega = torch.randn((n, ell), generator=state.next_generator(a.device),
+    omega = torch.randn((n, ell), generator=state.next_key(a.device),
                         dtype=a.dtype, device=a.device)
     q = torch.linalg.qr(a @ omega).Q
     for _ in range(n_iter):

@@ -45,7 +45,7 @@ def rmat_rectangular_gen(res, state: RngState, r_scale: int, c_scale: int,
              else torch.int32)
     if max_scale > 31 and carry == torch.int32:
         raise ValueError("r_scale/c_scale > 31 requires an int64 dtype")
-    u = torch.rand((max_scale, n_edges), generator=state.next_generator(dev),
+    u = torch.rand((max_scale, n_edges), generator=state.next_key(dev),
                    dtype=torch.float32, device=dev)
     src = torch.zeros(n_edges, dtype=carry, device=dev)
     dst = torch.zeros(n_edges, dtype=carry, device=dev)
