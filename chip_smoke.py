@@ -113,7 +113,25 @@ just after:
   kernels line as ``stats_shapes``), ``neighborhood_recall`` of ``knn`` at
   'default' against 'highest'; and ``label.merge_labels`` of the fit's
   and the blobs' labels over all 1M rows (every row and 1% masked) equal
-  to scipy's components, with its rounds.
+  to scipy's components, with its rounds;
+- the primitives path (the ``primitives`` line; no registry kernel runs
+  there, so every launch count must stay 0): the auction LAP solver on
+  cuGraph's dense_hungarian shape (1 x 1024 x 1024 integral costs,
+  total equal to scipy's), 64 x 256 x 256 uniform problems (each within
+  n·eps of scipy's optimum and of its dual) and 1 x 4096 x 4096, the first
+  two bit for bit the port's CPU run (16 of the 64 lanes), with rounds a
+  phase, syncs and ms a round beside a round's read of the costs; the
+  device vector cache at cuML SVC's default 1024 MiB (16,384 columns of
+  16,384 f32 rows, associativity 32) fed 512-key insert and lookup
+  batches with reuse, hits, vectors and the final state equal to the same
+  sequence on the CPU; a 1M x 128 f32 matrix device -> pinned host ->
+  device through ``core.mdarray`` (bitwise, GB/s beside PCIe Gen5 x16),
+  ``core.serialize`` of it and of its bf16 rounding against ``np.save``,
+  the native runtime's ``npy_save`` bytes against ``dumps``, its
+  ``parallel_copy`` beside ``np.copyto``; the handle's memory stats, the
+  architecture query (sm_90), ``matmul_escalation`` of a gemm at
+  'default' (the 'high' bits), and ``DeviceResourcesSNMG`` over the one
+  card with its comms self-tests.
 
 The CSR kernels are first held against their plain versions on a hub
 row of 100,000 entries, empty rows, an empty matrix, a stored zero
@@ -257,6 +275,17 @@ STATS_HIST_BINS = 20000
 # the sample scores against f64: about 100x the H100 gaps (silhouette
 # 8e-8, trustworthiness 3e-10; a trustworthiness rank unit is 2.3e-11)
 STATS_SIL_TOL, STATS_TRUST_TOL = 1e-5, 1e-7
+# the primitives phase: cuGraph's dense_hungarian (one 1024 x 1024
+# problem), many small tracking problems, one 4096 x 4096; cuML SVC's
+# kernel cache at its default cache_size (1024 MiB: 16,384 columns of
+# 16,384 f32 rows, associativity 32); a 1M x 128 f32 matrix's host trips
+LAP_A, LAP_B, LAP_C = (1, 1024), (64, 256), (1, 4096)
+LAP_B_CPU_LANES = 16                    # (b)'s lanes re-run on the CPU
+LAP_COST_MAX = 1000                     # (a): integral costs in [0, 1000)
+CACHE_ROWS, CACHE_COLS, CACHE_ASSOC = 16384, 16384, 32
+CACHE_BATCH, CACHE_KEYS, CACHE_STEPS = 512, 2 * CACHE_COLS, 16
+XFER_M, XFER_D = 1 << 20, 128
+PCIE5_X16_BYTES = 63.0e9    # 32 GT/s x 16 lanes, 128b/130b, one direction
 OUT_DIR = "chiprun_out"
 RECORD = {}
 
@@ -5450,6 +5479,389 @@ def stats_phase(res, dev):
     return launches, parity
 
 
+def lap_solve(res, cost):
+    """One solve of the [B, n, n] batch ``cost``: the problem, the host
+    wall ms (ending in a sync) and the call's trace event."""
+    import torch
+
+    from raft_tpu_torch.core import trace
+    from raft_tpu_torch.solver import LinearAssignmentProblem
+
+    b, n, _ = cost.shape
+    lap = LinearAssignmentProblem(res, n, b)
+    trace.clear_events()
+    t0 = time.perf_counter()
+    lap.solve(cost)
+    if cost.is_cuda:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    (event,) = trace.events("solver.linear_assignment")
+    return lap, ms, event
+
+
+def lap_numbers(cost, ms, event):
+    """ms, rounds, host reads and a round's one read of the benefit
+    matrix against HBM's rate."""
+    rounds = sum(event["rounds"])
+    read = cost.numel() * cost.element_size()
+    return dict(shape=list(cost.shape), ms=ms,
+                rounds_by_phase=event["rounds"], rounds=rounds,
+                syncs=event["syncs"], ms_per_round=ms / rounds,
+                round_read_bytes=read,
+                round_bound_ms=read / PEAK_BYTES * 1e3)
+
+
+def lap_dual_f64(lap, lane):
+    """The lane's dual objective summed in f64 on the host."""
+    return -float(lap._row_duals[lane].double().sum()
+                  + lap._col_duals[lane].double().sum())
+
+
+def lap_same(card, cpu, lanes, what):
+    """Assignments and prices of ``card`` (its ``lanes``) bit for bit
+    those of ``cpu``."""
+    import torch
+
+    for name in ("row_assignments", "col_assignments", "_col_duals",
+                 "_row_duals"):
+        got = getattr(card, name)[lanes].cpu()
+        want = getattr(cpu, name)
+        check(torch.equal(got, want), f"{what}: {name} differs from the "
+              "CPU run")
+
+
+def primitives_lap(res, dev, out):
+    """(a) one integral 1024 x 1024 problem, exact: scipy's total; (b) 64
+    uniform 256 x 256 problems, each within n·eps of its optimum and of
+    its dual; (c) one uniform 4096 x 4096 problem. (a) and (b) bit for bit
+    the CPU run of the same inputs ((b) on LAP_B_CPU_LANES of its
+    lanes)."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from raft_tpu_torch import device_resources
+
+    cpu = device_resources("cpu")
+    rng = np.random.default_rng(SEED + 16)
+    lap_out = {}
+    # (a)
+    b, n = LAP_A
+    host = rng.integers(0, LAP_COST_MAX, (b, n, n)).astype(np.float32)
+    cost = torch.from_numpy(host).to(dev)
+    card, ms, event = lap_solve(res, cost)
+    r, c = linear_sum_assignment(host[0])
+    want = float(host[0][r, c].astype(np.float64).sum())
+    got = float(card.get_primal_objective_value(0))
+    check(got == want, f"LAP (a): total {got} != scipy's {want}")
+    t0 = time.perf_counter()
+    ref, cpu_ms, cpu_event = lap_solve(cpu, torch.from_numpy(host))
+    lap_same(card, ref, slice(None), "LAP (a)")
+    lap_out["a"] = dict(lap_numbers(cost, ms, event), total=got,
+                        scipy_total=want, cpu_ms=cpu_ms,
+                        cpu_rounds_by_phase=cpu_event["rounds"],
+                        bitwise_cpu=True)
+    # (b)
+    b, n = LAP_B
+    host = rng.random((b, n, n), dtype=np.float64).astype(np.float32)
+    cost = torch.from_numpy(host).to(dev)
+    card, ms, event = lap_solve(res, cost)
+    eps = card._eps
+    gaps = []
+    for lane in range(b):
+        r, c = linear_sum_assignment(host[lane].astype(np.float64))
+        opt = float(host[lane].astype(np.float64)[r, c].sum())
+        rows = card.row_assignments[lane].cpu().numpy()
+        primal = float(host[lane].astype(np.float64)[np.arange(n), rows]
+                       .sum())
+        dual = lap_dual_f64(card, lane)
+        check(sorted(rows.tolist()) == list(range(n)),
+              f"LAP (b) lane {lane}: not a permutation")
+        check(primal - opt <= n * eps and abs(primal - dual) <= n * eps,
+              f"LAP (b) lane {lane}: primal {primal}, optimum {opt}, dual "
+              f"{dual} beyond n·eps {n * eps}")
+        gaps.append(primal - opt)
+    lanes = slice(0, b, b // LAP_B_CPU_LANES)
+    ref, cpu_ms, _ = lap_solve(cpu, torch.from_numpy(host[lanes]))
+    lap_same(card, ref, lanes, "LAP (b)")
+    lap_out["b"] = dict(lap_numbers(cost, ms, event), n_eps=n * eps,
+                        max_primal_minus_optimum=max(gaps),
+                        cpu_lanes=LAP_B_CPU_LANES, cpu_ms=cpu_ms,
+                        bitwise_cpu=True)
+    # (c)
+    b, n = LAP_C
+    cost = torch.rand((b, n, n), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    card, ms, event = lap_solve(res, cost)
+    rows = card.row_assignments[0]
+    check(bool((torch.sort(rows).values == torch.arange(
+        n, device=dev, dtype=rows.dtype)).all()), "LAP (c): not a "
+          "permutation")
+    primal = float(torch.gather(cost[0].double(), 1, rows.long()[:, None])
+                   .sum())
+    gap = primal - lap_dual_f64(card, 0)
+    check(abs(gap) <= n * card._eps, f"LAP (c): primal - dual {gap} beyond "
+          f"n·eps {n * card._eps}")
+    lap_out["c"] = dict(lap_numbers(cost, ms, event), primal_minus_dual=gap)
+    out["lap"] = lap_out
+
+
+def primitives_cache(res, dev, out):
+    """cuML SVC's kernel cache at 1024 MiB through the device tier:
+    CACHE_STEPS insert and lookup batches of CACHE_BATCH distinct keys,
+    half of each drawn from the keys already fed (reuse), on the card and
+    on the CPU; hits, vectors and the final state equal."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import device_resources
+    from raft_tpu_torch.util import cache as tcache
+
+    cpu = device_resources("cpu")
+    card = tcache.device_cache_init(CACHE_ROWS, CACHE_COLS, CACHE_ASSOC,
+                                    res=res)
+    host = tcache.device_cache_init(CACHE_ROWS, CACHE_COLS, CACHE_ASSOC,
+                                    res=cpu)
+    rng = np.random.default_rng(SEED + 17)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    seen = np.zeros(0, np.int64)
+    ins_ms, look_ms, hit_rate = [], [], []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(CACHE_STEPS):
+        old = rng.choice(seen, min(seen.size, CACHE_BATCH // 2),
+                         replace=False) if seen.size else seen
+        fresh = np.setdiff1d(rng.choice(CACHE_KEYS, 2 * CACHE_BATCH,
+                                        replace=False), old)
+        keys = np.concatenate([old, rng.permutation(fresh)[
+            :CACHE_BATCH - old.size]]).astype(np.int32)
+        rng.shuffle(keys)
+        seen = np.union1d(seen, keys)
+        vecs = torch.randn((CACHE_BATCH, CACHE_ROWS), generator=gen,
+                           device=dev)
+        kd = torch.from_numpy(keys).to(dev)
+        start.record()
+        tcache.device_cache_insert(card, kd, vecs)
+        end.record()
+        torch.cuda.synchronize()
+        ins_ms.append(start.elapsed_time(end))
+        tcache.device_cache_insert(host, torch.from_numpy(keys), vecs.cpu())
+        probe = rng.permutation(np.concatenate([
+            rng.choice(seen, CACHE_BATCH // 2, replace=False),
+            np.setdiff1d(rng.choice(CACHE_KEYS, CACHE_BATCH, replace=False),
+                         seen)[:CACHE_BATCH // 2]])).astype(np.int32)
+        pd = torch.from_numpy(probe).to(dev)
+        start.record()
+        got, hit, _ = tcache.device_cache_lookup(card, pd)
+        end.record()
+        torch.cuda.synchronize()
+        look_ms.append(start.elapsed_time(end))
+        want, want_hit, _ = tcache.device_cache_lookup(
+            host, torch.from_numpy(probe))
+        check(torch.equal(hit.cpu(), want_hit), "cache: hits differ")
+        check(torch.equal(got.cpu(), want), "cache: vectors differ")
+        hit_rate.append(float(hit.float().mean()))
+    for name in ("keys", "time", "clock"):
+        check(torch.equal(getattr(card, name).cpu(), getattr(host, name)),
+              f"cache: final {name} differs")
+    check(torch.equal(card.store, host.store.to(dev)),
+          "cache: final store differs")
+    batch_bytes = 2 * CACHE_BATCH * CACHE_ROWS * 4   # vectors in and out
+    out["cache"] = dict(
+        store_bytes=card.store.numel() * 4, n_sets=card.n_sets,
+        associativity=card.associativity, batch=CACHE_BATCH,
+        steps=CACHE_STEPS, hit_rate=hit_rate,
+        insert_ms=float(np.mean(ins_ms[1:])),
+        lookup_ms=float(np.mean(look_ms[1:])),
+        batch_bytes=batch_bytes, bound_ms=batch_bytes / PEAK_BYTES * 1e3,
+        equal_cpu=True)
+    del card, host
+
+
+def primitives_host(res, dev, out):
+    """A 1M x 128 f32 device matrix: device -> pinned host -> device
+    through core.mdarray, bitwise; serialize.dumps/loads of it and of its
+    bf16 rounding against np.save of the host copy; native npy_save's
+    bytes against dumps; parallel_copy against one np.copyto; the
+    handle's memory stats after the allocation."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.core import mdarray as tmd
+    from raft_tpu_torch.core import native_runtime as tnr
+    from raft_tpu_torch.core import resources as tres
+    from raft_tpu_torch.core import serialize as tser
+    from raft_tpu_torch.core.memory_type import DEVICE
+
+    check(tnr.native_available(), "native runtime: "
+          + tnr._native.build_error())
+    x = torch.randn((XFER_M, XFER_D), generator=torch.Generator(
+        device=dev).manual_seed(SEED + 18), device=dev)
+    torch.cuda.synchronize()
+    stats = tres.get_memory_stats(res)
+    check(stats["bytes_in_use"] == torch.cuda.memory_allocated(dev),
+          f"get_memory_stats {stats} != memory_allocated")
+    nbytes = x.numel() * 4
+    pin = tmd.make_pinned_matrix(XFER_M, XFER_D)
+    check(pin.data.is_pinned(), "make_pinned_matrix is not page-locked")
+    back = tmd.make_device_matrix(res, XFER_M, XFER_D)
+    src = tmd.MdArray(x, DEVICE)
+    d2h, h2d = [], []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tmd.copy(res, pin, src)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tmd.copy(res, back, pin)
+        torch.cuda.synchronize()
+        d2h.append(t1 - t0)
+        h2d.append(time.perf_counter() - t1)
+    check(pin.data.is_pinned(), "copy replaced the pinned buffer")
+    check(torch.equal(back.data, x), "device -> pinned -> device differs")
+    host = pin.data.numpy()
+    t0 = time.perf_counter()
+    blob = tser.dumps(x)
+    dumps_s = time.perf_counter() - t0
+    buf = io.BytesIO()
+    np.save(buf, host, allow_pickle=False)
+    check(blob == buf.getvalue(), "dumps != np.save of the host copy")
+    t0 = time.perf_counter()
+    loaded = tser.loads(blob, res=res)
+    torch.cuda.synchronize()
+    loads_s = time.perf_counter() - t0
+    check(torch.equal(loaded, x), "loads(dumps(x)) differs")
+    del loaded
+    xb = x.to(torch.bfloat16)
+    bbits = xb.view(torch.int16).cpu().numpy().view(np.uint16)
+    buf = io.BytesIO()
+    np.save(buf, bbits.view([("bfloat16", np.uint16)]), allow_pickle=False)
+    bblob = tser.dumps(xb)
+    check(bblob == buf.getvalue(), "bf16 dumps != np.save of its wire form")
+    check(torch.equal(tser.loads(bblob, res=res).view(torch.int16),
+                      xb.view(torch.int16)), "bf16 loads differs")
+    del xb
+    tmp = Path("build") / "primitives"
+    tmp.mkdir(parents=True, exist_ok=True)
+    path = tmp / "x.npy"
+    try:
+        t0 = time.perf_counter()
+        tnr.npy_save(str(path), x)
+        npy_save_s = time.perf_counter() - t0
+        check(path.read_bytes() == blob, "native npy_save != dumps")
+        check(np.array_equal(tnr.npy_load(str(path)), host),
+              "native npy_load differs")
+    finally:
+        path.unlink(missing_ok=True)
+    del blob
+    dst, dst1 = np.empty_like(host), np.empty_like(host)
+    pool = tnr.NativeThreadPool()
+    pool.parallel_copy(dst, host)
+    t0 = time.perf_counter()
+    pool.parallel_copy(dst, host)
+    par_s = time.perf_counter() - t0
+    pool.close()
+    np.copyto(dst1, host)
+    t0 = time.perf_counter()
+    np.copyto(dst1, host)
+    one_s = time.perf_counter() - t0
+    check(np.array_equal(dst, host) and np.array_equal(dst1, host),
+          "parallel_copy differs")
+    d2h_s, h2d_s = min(d2h), min(h2d)
+    out["host"] = dict(
+        shape=[XFER_M, XFER_D], bytes=nbytes, memory_stats=stats,
+        d2h_pinned_ms=d2h_s * 1e3, d2h_gb_s=nbytes / d2h_s / 1e9,
+        h2d_pinned_ms=h2d_s * 1e3, h2d_gb_s=nbytes / h2d_s / 1e9,
+        pcie5_x16_gb_s=PCIE5_X16_BYTES / 1e9,
+        dumps_ms=dumps_s * 1e3, loads_ms=loads_s * 1e3,
+        npy_save_ms=npy_save_s * 1e3, native_available=True,
+        parallel_copy_ms=par_s * 1e3, np_copyto_ms=one_s * 1e3,
+        copy_threads=os.cpu_count(), bitwise=True)
+    del x, back, pin
+    torch.cuda.empty_cache()
+
+
+def primitives_handle(res, dev, out):
+    """runtime_arch, the capability figures, matmul_escalation of a gemm
+    at 'default' (the 'high' bits), and DeviceResourcesSNMG over the one
+    card with its comms self-tests (a NCCL world of size 1, destroyed
+    after)."""
+    import torch
+    import torch.distributed as dist
+
+    from raft_tpu_torch.comms import test_suite
+    from raft_tpu_torch.core import resources as tres
+    from raft_tpu_torch.linalg import gemm
+    from raft_tpu_torch.util import arch, numerics
+
+    a = arch.runtime_arch()
+    check(a.gen == 90, f"runtime_arch().gen {a.gen} != 90")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    x = torch.randn((4096, 1024), generator=gen, device=dev)
+    y = torch.randn((1024, 2048), generator=gen, device=dev)
+    with numerics.tier_scope("default"):
+        low = gemm(res, x, y)
+        up = numerics.matmul_escalation(lambda: gemm(res, x, y))()
+    with numerics.tier_scope("high"):
+        high = gemm(res, x, y)
+    check(torch.equal(up, high) and not torch.equal(low, high),
+          "matmul_escalation at 'default' does not give 'high''s bits")
+    check(not dist.is_initialized(), "a process group is already up")
+    try:
+        snmg = tres.DeviceResourcesSNMG(devices=[dev])
+        check(snmg.n_ranks == 1, f"SNMG n_ranks {snmg.n_ranks}")
+        comms = tres.get_comms(snmg)
+        tests = {name: bool(getattr(test_suite, name)(comms))
+                 for name in ("perform_test_comms_allreduce",
+                              "perform_test_comms_bcast",
+                              "perform_test_comms_allgather",
+                              "perform_test_comms_reducescatter")}
+        check(all(tests.values()), f"SNMG comms self-tests {tests}")
+    finally:
+        dist.destroy_process_group()
+    out["handle"] = dict(
+        arch=dict(kind=a.device_kind, gen=a.gen,
+                  vmem_bytes=arch.vmem_bytes(), mxu_dim=arch.mxu_dim(),
+                  vreg_shape=list(arch.vreg_shape())),
+        escalation_equal_high=True, snmg_ranks=1, snmg_self_tests=tests)
+
+
+def primitives_phase(res, dev):
+    """The host core, the handle, the util layer, the device cache and
+    the LAP solver through their entry points (the ``primitives`` line).
+    No kernel of the registry runs here: the counts are set to 0 before
+    and must read 0 after."""
+    import torch
+
+    from raft_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    torch.empty(0, device=dev)      # the allocator is up, run alone too
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    kernels.reset_launch_counts()
+    out = {}
+    parts = {}
+    for name, fn in (("lap", primitives_lap), ("cache", primitives_cache),
+                     ("host", primitives_host),
+                     ("handle", primitives_handle)):
+        t1 = time.perf_counter()
+        fn(res, dev, out)
+        parts[name] = time.perf_counter() - t1
+    launches = {n: c for n, c in kernels.launch_counts().items() if c}
+    check(not launches, f"primitives launched registry kernels {launches}")
+    out["launches"] = launches
+    out["part_seconds"] = parts
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    out["seconds"] = time.perf_counter() - t0
+    out["reduced"] = [f"LAP (b): the CPU re-run covers {LAP_B_CPU_LANES} "
+                      f"of its {LAP_B[0]} lanes (one in "
+                      f"{LAP_B[0] // LAP_B_CPU_LANES}; lanes never share "
+                      "state), for the phase's time"]
+    emit("primitives", **out)
+
+
 def main():
     import torch
 
@@ -5614,6 +6026,7 @@ def main():
         row["max_abs_err"] = max([row["max_abs_err"]]
                                  + [stats_parity[p]["max_abs_err"]
                                     for p in parts])
+    primitives_phase(res, dev)
     check(len(table) == len(kernels.REGISTRY)
           and {r["name"] for r in table} == set(kernels.REGISTRY),
           "the kernels line does not list every registered kernel")

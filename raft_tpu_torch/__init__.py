@@ -36,6 +36,12 @@ comms               : MeshComms, build_mesh_comms, comms.device (NCCL for
                       self-test battery; with core.{logger, trace,
                       interruptible}, obs and runtime.limits
 cluster (MNMG)      : mnmg_lloyd_step
+core (host)         : the resource registry, memory types, mdarray,
+                      serialize (.npy), memory observability, the native
+                      host runtime (g++ at first use)
+util                : input checks, integer math, arch, the precision
+                      ladder, the vector caches
+solver              : the auction linear assignment solver
 
 The package imports neither ``jax`` nor ``raft_tpu``.
 """

@@ -14,11 +14,11 @@ each package reads the other's files:
       payload  nbytes   (.npy bytes)
       crc32    u32      (of payload)
 
-Every entry's payload is a NumPy ``.npy`` stream. A bf16 array travels
-as the one-field structured dtype ``[("bfloat16", "<u2")]`` (the
-reference's wire form; NumPy has no bf16 of its own): a
-``torch.bfloat16`` tensor is written through a ``uint16`` view, and such
-an entry reads back as a ``torch.bfloat16`` tensor. Other arrays read
+Every entry's payload is a NumPy ``.npy`` stream written by
+:mod:`raft_tpu_torch.core.serialize`. A bf16 array travels as the
+one-field structured dtype ``[("bfloat16", "<u2")]`` (the reference's
+wire form; NumPy has no bf16 of its own) and reads back as a
+``torch.bfloat16`` tensor. Other arrays read
 back as NumPy arrays, scalars as native Python values, and an
 :class:`~raft_tpu_torch.random.rng_state.RngState` as itself.
 
@@ -39,10 +39,9 @@ import zlib
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
-import torch
 
 from raft_tpu_torch import obs
-from raft_tpu_torch.core import logger, trace
+from raft_tpu_torch.core import logger, serialize, trace
 from raft_tpu_torch.random.rng_state import GeneratorType, RngState
 
 _log = logger.child("checkpoint")
@@ -59,10 +58,6 @@ _ENTRY_HEAD = struct.Struct("<H")         # name length
 _ENTRY_META = struct.Struct("<BQ")        # kind, payload nbytes
 _ENTRY_CRC = struct.Struct("<I")          # crc32 of payload
 
-# bf16 on the wire: the reference's structured dtype, same bytes
-_BF16_WIRE = np.dtype([("bfloat16", np.uint16)])
-
-
 class CheckpointError(RuntimeError):
     """Base error for checkpoint reading/writing."""
 
@@ -76,55 +71,28 @@ class CheckpointVersionError(CheckpointError):
     """The container is a different format version than this reader."""
 
 
-def _npy_bytes(value: Any) -> bytes:
-    """``.npy`` bytes of an array (a tensor goes through the host)."""
-    if isinstance(value, torch.Tensor):
-        t = value.detach().cpu().contiguous()
-        if t.dtype == torch.bfloat16:
-            arr = t.view(torch.int16).numpy().view(np.uint16).view(
-                _BF16_WIRE)
-        else:
-            arr = t.numpy()
-    else:
-        arr = np.asarray(value)
-        if arr.dtype.name == "bfloat16":
-            arr = np.ascontiguousarray(arr).view(np.uint16).view(_BF16_WIRE)
-    buf = io.BytesIO()
-    np.save(buf, arr, allow_pickle=False)
-    return buf.getvalue()
-
-
-def _npy_load(payload: bytes):
-    arr = np.load(io.BytesIO(payload), allow_pickle=False)
-    if arr.dtype.names == ("bfloat16",):
-        return torch.from_numpy(
-            np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
-    return arr
-
-
 def _encode_value(value: Any) -> Tuple[int, bytes]:
     if isinstance(value, RngState):
         triple = np.asarray(
             [value.seed, value.base_subsequence,
              0 if value.type == GeneratorType.THREEFRY else 1], np.int64)
-        return _KIND_RNGSTATE, _npy_bytes(triple)
+        return _KIND_RNGSTATE, serialize.dumps(triple)
     if isinstance(value, (bool, int, float, complex, np.generic)):
-        return _KIND_SCALAR, _npy_bytes(np.asarray(value))
-    return _KIND_ARRAY, _npy_bytes(value)
+        return _KIND_SCALAR, serialize.dumps(np.asarray(value))
+    return _KIND_ARRAY, serialize.dumps(value)
 
 
 def _decode_value(kind: int, payload: bytes) -> Any:
     if kind == _KIND_RNGSTATE:
-        triple = _npy_load(payload)
+        triple = serialize.loads(payload, to_device=False)
         return RngState(
             seed=int(triple[0]), base_subsequence=int(triple[1]),
             type=(GeneratorType.THREEFRY if int(triple[2]) == 0
                   else GeneratorType.RBG))
     if kind == _KIND_SCALAR:
-        val = np.load(io.BytesIO(payload), allow_pickle=False)[()]
-        return val.item() if isinstance(val, np.generic) else val
+        return serialize.deserialize_scalar(None, io.BytesIO(payload))
     if kind == _KIND_ARRAY:
-        return _npy_load(payload)
+        return serialize.loads(payload, to_device=False)
     raise CheckpointCorruptError(f"unknown entry kind {kind}")
 
 

@@ -10,6 +10,9 @@ padding included, on the handle's device.
 :func:`kmeans_params_from_dict` and :func:`lanczos_config_from_dict`
 build the port's parameter objects from a plain dict (for example
 ``dataclasses.asdict`` of the reference's).
+:func:`mdarray_from_numpy`, :func:`device_cache_state_from_numpy` and
+:func:`lap_costs_from_numpy` carry an ``MdArray`` (with its memory type
+and layout), a device cache's state and a LAP's cost batch.
 """
 
 from __future__ import annotations
@@ -20,12 +23,17 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.cluster.kmeans import KMeansInit, KMeansParams
-from raft_tpu_torch.core.resources import DeviceResources, as_tensor
+from raft_tpu_torch.core.mdarray import ROW_MAJOR, MdArray, pinned
+from raft_tpu_torch.core.memory_type import MemoryType
+from raft_tpu_torch.core.resources import (DeviceResources, as_tensor,
+                                           default_resources, get_device)
 from raft_tpu_torch.core.sparse_types import CSRMatrix
 from raft_tpu_torch.sparse.solver.lanczos import LanczosConfig
+from raft_tpu_torch.util.cache import DeviceCacheState
 
 __all__ = ["from_numpy", "kmeans_params_from_dict", "csr_from_numpy",
-           "lanczos_config_from_dict"]
+           "lanczos_config_from_dict", "mdarray_from_numpy",
+           "device_cache_state_from_numpy", "lap_costs_from_numpy"]
 
 
 def from_numpy(a, res=None, device=None):
@@ -75,3 +83,37 @@ def csr_from_numpy(indptr, indices, data, shape, logical_nnz:
 def lanczos_config_from_dict(d: Mapping) -> LanczosConfig:
     """:class:`LanczosConfig` from a plain dict of its fields."""
     return LanczosConfig(**dict(d))
+
+
+def mdarray_from_numpy(data, memory_type, layout: str = ROW_MAJOR,
+                       res=None) -> MdArray:
+    """A port MdArray from a reference MdArray's buffer (as numpy), its
+    memory type (either package's ``MemoryType``, or its value such as
+    ``"pinned"``) and its layout; the buffer is kept as it is (a
+    ``COL_MAJOR`` buffer holds Aᵀ). Device-accessible types land on the
+    handle's device, ``PINNED`` in page-locked host memory."""
+    mt = MemoryType(getattr(memory_type, "value", memory_type))
+    t = from_numpy(data, device="cpu")
+    if mt.is_device_accessible:
+        t = t.to(get_device(default_resources(res)))
+    elif mt is MemoryType.PINNED:
+        t = pinned(t)
+    return MdArray(t, mt, str(layout))
+
+
+def device_cache_state_from_numpy(keys, time, store, clock,
+                                  res=None) -> DeviceCacheState:
+    """A port DeviceCacheState from a reference state's ``keys``,
+    ``time``, ``store`` and ``clock`` (as numpy) on the handle's
+    device."""
+    k, t, st, c = from_numpy((keys, time, store, clock), res)
+    return DeviceCacheState(k.to(torch.int32).contiguous(),
+                            t.to(torch.int32).contiguous(),
+                            st.contiguous(), c.to(torch.int32).reshape(()))
+
+
+def lap_costs_from_numpy(cost, res=None) -> torch.Tensor:
+    """A LAP's cost batch [B, n, n] (an [n, n] matrix gains the batch
+    axis) on the handle's device, dtype kept."""
+    t = from_numpy(cost, res)
+    return t[None] if t.ndim == 2 else t

@@ -1,5 +1,10 @@
 """Entry-point argument checks (counterpart of
-``raft_tpu/util/input_validation.py``)."""
+``raft_tpu/util/input_validation.py``): the same error types and
+messages, on tensors and torch dtypes.
+
+Shape and dtype checks read metadata only and are always on.
+``expect_finite`` scans values, so it is gated on the guard mode.
+"""
 
 from __future__ import annotations
 
@@ -10,9 +15,62 @@ import torch
 from raft_tpu_torch.core.guards import NonFiniteError
 
 
+def expect(cond: bool, msg: str) -> None:
+    """Raise ``ValueError(msg)`` unless ``cond``."""
+    if not cond:
+        raise ValueError(msg)
+
+
+def expect_shape(arr, shape, name: str = "array") -> None:
+    """``arr``'s shape is ``shape`` (a ``None`` entry matches any
+    extent)."""
+    actual = tuple(arr.shape)
+    expected = tuple(shape)
+    if len(actual) != len(expected) or any(
+            e is not None and a != e for a, e in zip(actual, expected)):
+        raise ValueError(f"{name}: expected shape {expected}, got {actual}")
+
+
 def expect_2d(arr, name: str = "array") -> None:
     if arr.ndim != 2:
         raise ValueError(f"{name}: expected 2-D array, got ndim={arr.ndim}")
+
+
+def expect_same_shape(a, b, names=("a", "b")) -> None:
+    if tuple(a.shape) != tuple(b.shape):
+        raise ValueError(
+            f"{names[0]} shape {tuple(a.shape)} != {names[1]} shape "
+            f"{tuple(b.shape)}")
+
+
+def expect_square(arr, name: str = "array") -> None:
+    """A 2-D array with equal dims."""
+    shape = tuple(arr.shape)
+    if len(shape) != 2 or shape[0] != shape[1]:
+        raise ValueError(f"{name}: expected a square matrix, got shape "
+                         f"{shape}")
+
+
+def expect_dtype(arr, dtypes, name: str = "array") -> None:
+    """Dtype membership check, raising ``TypeError``. ``dtypes`` is one
+    dtype-like (torch, numpy or a name) or a sequence of them; the
+    message names numpy's spellings, as the reference's does."""
+    from raft_tpu_torch.core.mdarray import torch_dtype
+
+    if not isinstance(dtypes, (tuple, list, set)):
+        dtypes = (dtypes,)
+    want = {torch_dtype(d) for d in dtypes}
+    got = torch_dtype(arr.dtype)
+    if got not in want:
+        raise TypeError(
+            f"{name}: dtype {_dtype_name(got)} not in "
+            f"{sorted(_dtype_name(d) for d in want)}")
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype (``float32``, ``bool``,
+    ``bfloat16``)."""
+    return str(dtype).replace("torch.", "")
 
 
 def expect_positive(value, name: str = "value",

@@ -34,39 +34,6 @@ GAPS = {
     ("raft_tpu.sparse.linalg", "sddmm"): "A11",
     ("raft_tpu.sparse.linalg", "masked_matmul"): "A11",
     ("raft_tpu.sparse.solver.mst_grid", "MSTGridPlan"): "A11",
-    # A12b: remaining primitives (the handle's resource registry, input
-    # checks, integer math)
-    ("raft_tpu.core.resources", "ResourceType"): "A12b",
-    ("raft_tpu.core.resources", "ResourceFactory"): "A12b",
-    ("raft_tpu.core.resources", "Resources"): "A12b",
-    ("raft_tpu.core.resources", "Handle"): "A12b",
-    ("raft_tpu.core.resources", "get_device"): "A12b",
-    ("raft_tpu.core.resources", "set_device"): "A12b",
-    ("raft_tpu.core.resources", "get_rng_state"): "A12b",
-    ("raft_tpu.core.resources", "set_rng_state"): "A12b",
-    ("raft_tpu.core.resources", "get_subcomm"): "A12b",
-    ("raft_tpu.core.resources", "set_subcomm"): "A12b",
-    ("raft_tpu.core.resources", "get_workspace_limit"): "A12b",
-    ("raft_tpu.core.resources", "set_workspace_limit"): "A12b",
-    ("raft_tpu.core.resources", "get_memory_stats"): "A12b",
-    ("raft_tpu.core.resources", "get_cancel_token"): "A12b",
-    ("raft_tpu.core.resources", "sync"): "A12b",
-    ("raft_tpu.core.resources", "DeviceResourcesManager"): "A12b",
-    ("raft_tpu.core.resources", "get_device_resources"): "A12b",
-    ("raft_tpu.core.resources", "DeviceResourcesSNMG"): "A12b",
-    ("raft_tpu.util.input_validation", "expect"): "A12b",
-    ("raft_tpu.util.input_validation", "expect_shape"): "A12b",
-    ("raft_tpu.util.input_validation", "expect_same_shape"): "A12b",
-    ("raft_tpu.util.input_validation", "expect_square"): "A12b",
-    ("raft_tpu.util.input_validation", "expect_dtype"): "A12b",
-    ("raft_tpu.util.math", "round_down_to_multiple"): "A12b",
-    ("raft_tpu.util.math", "is_pow2"): "A12b",
-    ("raft_tpu.util.math", "next_pow2"): "A12b",
-    ("raft_tpu.util.math", "prev_pow2"): "A12b",
-    ("raft_tpu.util.math", "Pow2"): "A12b",
-    ("raft_tpu.util.math", "FastIntDiv"): "A12b",
-    ("raft_tpu.util.math", "bound_by_power_of_two_and_ratio"): "A12b",
-    ("raft_tpu.util.math", "Seive"): "A12b",
     # A13: runtime + obs
     ("raft_tpu.core.guards", "ArtifactCorruptError"): "A13",
     ("raft_tpu.core.guards", "guard_mode"): "A13",
