@@ -16,6 +16,27 @@ just after:
 
 - k-means (Lloyd) on 1,000,000 x 128 f32 with k = 1024 at tier 'high',
   then the distance embedding of the data;
+- the compiled driver (the ``compiled_driver`` line) at config 3:
+  ``kmeans_fit`` with ``sync_every=1`` (the host loop) against the
+  default (the cost model's chunk on the card, 8 iterations here: a
+  first chunk of steps launched one by one, then chunks replaying a
+  captured CUDA graph of one step, one host read a chunk), 10
+  iterations at tol 0, at a tol that converges mid chunk and at the
+  default tol (bitwise equal centroids, labels and ``n_iter``; the host
+  syncs ``solver_host_syncs_total`` one a chunk; the same launches per
+  kernel, replays counted; ms an iteration from fits of two and four
+  chunks; each fit's idle share, device ops and top-level torch ops
+  from a trace; the steps launched against the steps that ran; the
+  default-tol fits' ms; a masked replay's ms; 24 fits of two chunks
+  timed one by one, for the captures' stalls); then
+  ``kmeans_partial_fit`` over the 1M rows from the same centroids at
+  ``chunk_rows`` 256 and 4096, host loop against captured (bitwise,
+  counts summing to the rows, a host read a chunk, equal launches, ms
+  and torch ops a chunk), the first 65,536 rows against the same pass on
+  the CPU (centroids within REL, labels but at near-ties; where a label
+  at a near-tie parts the passes, the step it parts at must be a
+  near-tie), and a resume from a mid-batch ``kmeans_pf`` checkpoint
+  under ``chiprun_out/`` bitwise the whole run (removed after);
 - pairwise_distance at BASELINE config 1's 5000 x 50 (the port's
   ``random.make_blobs``, 10 centers): the five expanded metrics and the
   seven unexpanded ones;
@@ -215,6 +236,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 SEED = 20261016
@@ -343,6 +365,29 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def median_ms(fn, reps):
+    """Median device milliseconds of one ``fn()`` over ``reps`` runs after
+    one warm-up run (CUDA events around each run): a run that captures a
+    CUDA graph may stall on the host now and then, and the median keeps
+    such a run from setting the figure."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def labels_agree(got, want, dist_rows, scale, rel, what):
@@ -638,7 +683,7 @@ def main_path(res, dev):
 
         it_ms = cuda_ms(step, 20)
         reps = 10
-        events, runtime = device_trace(step, reps)
+        events, runtime, _ = device_trace(step, reps)
         span = max(e for _, _, e in events) - min(s for _, s, _ in events)
         busy = busy_us(events)
         predict_ms = cuda_ms(lambda: tk.kmeans_predict(res, x, c), 5)
@@ -675,6 +720,415 @@ def small_fit_matches_cpu(res, dev):
     check(err <= 1e-4, f"small fit: centroids differ by {err}")
     emit("small_fit_vs_cpu", shape=[4000, 16], n_clusters=12, n_iter=it,
          centroid_max_abs_err=err)
+
+
+# ---------------------------------------------------------------------------
+# compiled_driver: kmeans_fit's chunks and kmeans_partial_fit as captured
+# CUDA graphs against the host loop
+# ---------------------------------------------------------------------------
+
+CD_CHUNK_ROWS = (256, 4096)     # kmeans_partial_fit's default, and a wide one
+CD_CPU_ROWS = 65536             # rows of the partial fit held to the CPU
+CD_HISTORY = 40                 # iterations of the mid-chunk tol's history
+CD_RESUME_AT = 128              # chunk of the mid-batch checkpoint
+CD_STALL_FITS = 24              # fits of two chunks timed one by one
+
+
+def cd_trace(fn, reps):
+    """``device_trace`` of ``reps`` calls of ``fn``, a call: the card's
+    idle share, busy and span ms, device ops, top-level torch ops and
+    runtime calls."""
+    events, runtime, aten = device_trace(fn, reps)
+    span = max(e for _, _, e in events) - min(s for _, s, _ in events)
+    busy = busy_us(events)
+    return dict(idle_share=1.0 - busy / span,
+                busy_ms=busy / reps / 1e3, span_ms=span / reps / 1e3,
+                device_ops=len(events) / reps, aten_ops=aten / reps,
+                runtime_calls={k: v / reps for k, v in runtime.items()})
+
+
+def cd_default_sync(dev, m):
+    """The ``sync_every`` a k-means step over ``m`` rows at config 3's
+    width resolves to on the card (the cost model with the step's
+    estimated seconds, as ``kmeans_fit`` and ``kmeans_partial_fit`` ask
+    it)."""
+    from raft_tpu_torch.runtime import compiled_driver as cdrv
+    from raft_tpu_torch.runtime import limits
+
+    est = limits.estimate_seconds("cluster.lloyd_step", backend="gpu",
+                                  m=m, k=MAIN_K, n_clusters=MAIN_N,
+                                  itemsize=4)
+    return cdrv.resolve_sync_every(None, step_seconds=est, device=dev)
+
+
+def cd_counts(op):
+    """``solver_host_syncs_total`` of ``op`` in the live registry."""
+    from raft_tpu_torch import obs
+
+    fam = obs.get_registry().snapshot().get("solver_host_syncs_total")
+    return sum(s["value"] for s in (fam or {}).get("series", [])
+               if s["labels"].get("op") == op)
+
+
+def cd_run(fn):
+    """``fn()`` with the launch counts, the graph counts and (metrics
+    on) a fresh metrics registry: ``(out, launches, graph counts, wall
+    s)``."""
+    import torch
+
+    from raft_tpu_torch import kernels, obs
+    from raft_tpu_torch.obs import metrics as obs_metrics
+    from raft_tpu_torch.runtime import compiled_driver as cdrv
+
+    if obs.enabled():
+        obs_metrics.set_registry(obs.MetricsRegistry())
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    g0 = cdrv.graph_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    g1 = cdrv.graph_stats()
+    return (out, kernels.launch_counts(),
+            {k: g1[k] - g0[k] for k in g0}, wall)
+
+
+def cd_fit_part(res, dev, x, c0, sync):
+    """(a): config 3 through ``kmeans_fit`` at ``sync_every=1`` and at
+    the default (captured chunks), tol 0, a tol that converges mid
+    chunk and the default tol; bitwise equal, host syncs one a chunk,
+    equal launches; ms an iteration, a masked step's ms and a
+    default-tol fit's ms; CD_STALL_FITS fits of two chunks one by one
+    (a capture's stalls)."""
+    import math
+    import statistics
+
+    import torch
+
+    from raft_tpu_torch.cluster import kmeans as tk
+    from raft_tpu_torch.util import precision as tprec
+
+    op = "cluster.kmeans_fit"
+
+    def fit(max_iter, tol, s):
+        # tol None: KMeansParams' defaults (max_iter 300, tol 1e-4)
+        kw = {} if tol is None else dict(max_iter=max_iter, tol=tol)
+        p = tk.KMeansParams(n_clusters=MAIN_N, init=tk.KMeansInit.ARRAY,
+                            **kw)
+        with tprec.scope("high"), warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # unconverged
+            return tk.kmeans_fit(res, p, x, c0, sync_every=s)
+
+    fit(MAIN_ITERS, 0.0, None)   # warm-up
+    runs = {}
+    for name, s in (("eager", 1), ("captured", None)):
+        out, launches, graphs, wall = cd_run(
+            lambda: fit(MAIN_ITERS, 0.0, s))
+        runs[name] = dict(out=out, launches=launches, graphs=graphs,
+                          host_syncs=cd_counts(op), wall_s=wall)
+    (ce, _, le, ne), (cc, _, lc, nc) = (runs["eager"]["out"],
+                                        runs["captured"]["out"])
+    check(ne == nc == MAIN_ITERS, f"compiled_driver: n_iter {ne} / {nc}")
+    check(torch.equal(ce, cc) and torch.equal(le, lc),
+          "compiled_driver: captured kmeans_fit not bitwise the host loop")
+    check(runs["eager"]["launches"] == runs["captured"]["launches"],
+          f"compiled_driver: launches {runs['eager']['launches']} vs "
+          f"captured {runs['captured']['launches']}")
+    check(runs["captured"]["host_syncs"] == math.ceil(MAIN_ITERS / sync)
+          == runs["captured"]["graphs"]["host_reads"],
+          f"compiled_driver: {runs['captured']['host_syncs']} host syncs "
+          f"for {MAIN_ITERS} iterations at sync_every={sync}")
+    check(runs["captured"]["graphs"]["steps_launched"] == MAIN_ITERS,
+          f"compiled_driver: {runs['captured']['graphs']} for "
+          f"{MAIN_ITERS} steps")
+    out = dict(sync_every=sync, n_iter=nc,
+               launches=runs["captured"]["launches"],
+               host_syncs={"eager": MAIN_ITERS,
+                           "captured": runs["captured"]["host_syncs"]},
+               graphs=runs["captured"]["graphs"])
+    # ms an iteration: a fit of 4 chunks less a fit of 2 (each captures
+    # once, at its second chunk), over 2 chunks (tol -1: no fit stops
+    # early)
+    for name, s in (("eager", 1), ("captured", None)):
+        two = median_ms(lambda: fit(2 * sync, -1.0, s), 5)
+        four = median_ms(lambda: fit(4 * sync, -1.0, s), 5)
+        tr = cd_trace(lambda: fit(2 * sync, -1.0, s), 2)
+        tr["device_ops"] /= 2 * sync
+        tr["aten_ops"] /= 2 * sync
+        out[name] = dict(fit_ms={2 * sync: two, 4 * sync: four},
+                         ms_per_iter=(four - two) / (2 * sync),
+                         trace_per_iter=tr)
+    out["bound_ms_per_iter"] = 2.0 * MAIN_M * MAIN_N * MAIN_K * 3 \
+        / PEAK_BF16_FLOPS * 1e3
+    # a capture now and then stalls the host: CD_STALL_FITS fits of two
+    # chunks each (a capture each when chunked), host clock, one by one
+    for name, s in (("eager", 1), ("captured", None)):
+        walls = []
+        for _ in range(CD_STALL_FITS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit(2 * sync, -1.0, s)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(walls)
+        out[name]["fits_of_two_chunks"] = dict(
+            fits=len(walls), median_ms=med, max_ms=max(walls),
+            over_twice_the_median=[w for w in walls if w > 2 * med])
+    # a tol that converges mid chunk: the host loop's relative changes
+    with tprec.scope("high"):
+        ops, meta = tk.lloyd_prepare(x, MAIN_N)
+        c, prev, rels = c0, None, []
+        for _ in range(CD_HISTORY):
+            c, inertia, _ = tk.lloyd_step_prepared(ops, c, **meta)
+            cur = float(inertia)
+            rels.append(float("inf") if prev is None
+                        else abs(prev - cur) / max(prev, 1e-30))
+            prev = cur
+        del ops, c
+    at = next((i for i in range(sync + 1, CD_HISTORY + 1)
+               if i % sync and rels[i - 1] < min(rels[:i - 1])), None)
+    check(at is not None, f"compiled_driver: no mid-chunk convergence "
+          f"point in {rels}")
+    tol = rels[at - 1]
+    conv = {}
+    for name, s in (("eager", 1), ("captured", None)):
+        res_, launches, graphs, _ = cd_run(lambda: fit(CD_HISTORY, tol, s))
+        conv[name] = (res_, launches, graphs)
+    (ce, _, le, ne), (cc, _, lc, nc) = conv["eager"][0], conv["captured"][0]
+    check(ne == nc == at, f"compiled_driver: tol {tol} converged at "
+          f"{ne} / {nc}, want {at}")
+    check(torch.equal(ce, cc) and torch.equal(le, lc),
+          "compiled_driver: mid-chunk convergence not bitwise")
+    launched = conv["captured"][2]["steps_launched"]
+    check(launched == -(-at // sync) * sync,
+          f"compiled_driver: {launched} steps launched for {at}")
+    out["mid_chunk"] = dict(tol=tol, n_iter=nc, steps_launched=launched,
+                            steps_ran=nc)
+    out["masked_step"] = cd_masked_step(x, c0, sync)
+    # the default tol: bitwise, and each fit's ms, the captured one's
+    # masked steps after convergence included
+    dflt = {}
+    for name, s in (("eager", 1), ("captured", None)):
+        res_, _, graphs, _ = cd_run(lambda: fit(None, None, s))
+        dflt[name] = dict(out=res_, graphs=graphs,
+                          fit_ms=median_ms(lambda: fit(None, None, s), 5))
+    (ce, _, le, ne), (cc, _, lc, nc) = (dflt["eager"]["out"],
+                                        dflt["captured"]["out"])
+    check(ne == nc and torch.equal(ce, cc) and torch.equal(le, lc),
+          f"compiled_driver: default-tol fit not bitwise ({ne} / {nc})")
+    out["default_tol"] = dict(
+        tol=tk.KMeansParams().tol, n_iter=nc,
+        steps_launched=dflt["captured"]["graphs"]["steps_launched"],
+        fit_ms={n_: d["fit_ms"] for n_, d in dflt.items()})
+    return out
+
+
+def cd_masked_step(x, c0, sync):
+    """A masked replay's ms: a loop's chunk of ``sync`` replays that
+    converges at its first step (tol inf after a finite inertia) against
+    another loop's chunk of ``sync`` active replays (tol -1), each timed
+    after the loop's first chunk and its capture (median of 5)."""
+    import torch
+
+    from raft_tpu_torch.cluster import kmeans as tk
+    from raft_tpu_torch.runtime import compiled_driver as cdrv
+    from raft_tpu_torch.util import precision as tprec
+
+    f64 = dict(dtype=torch.float64, device=x.device)
+    carry = (c0, torch.ones((), **f64), torch.full((), float("inf"), **f64))
+    ms = {}
+    with tprec.scope("high"):
+        ops, meta = tk.lloyd_prepare(x, MAIN_N)
+        for name, tol in (("active", -1.0), ("masked", float("inf"))):
+            loop = cdrv.ChunkLoop(
+                lambda cr, tol=tol: tk._lloyd_convergence_step(
+                    lambda c: tk.lloyd_step_prepared(ops, c, **meta), cr,
+                    tol))
+            loop(carry, sync)            # the first chunk, step by step
+            _, ran, _ = loop(carry, sync)
+            check(int(ran) == (sync if tol < 0 else 1),
+                  f"compiled_driver: {name} chunk ran {int(ran)} steps")
+            ms[name] = median_ms(lambda: loop(carry, sync), 5)
+    return dict(chunk_ms=ms, masked_steps=sync - 1,
+                ms=(ms["masked"] - ms["active"] / sync) / (sync - 1))
+
+
+def cd_partial_cpu(res, dev, x, c0, cr):
+    """The first CD_CPU_ROWS rows through ``kmeans_partial_fit`` on the
+    card (captured) and on the CPU (the plain versions): centroids
+    within REL of the largest, labels of the final assignment equal but
+    at near-ties. Where the two passes part (a label at a near-tie
+    inside the pass moves a centroid), the first step whose labels
+    differ must differ at a near-tie only."""
+    import torch
+
+    from raft_tpu_torch.cluster import kmeans as tk
+    from raft_tpu_torch.util import precision as tprec
+
+    rows = x[:CD_CPU_ROWS]
+    with tprec.scope("high"):
+        cg, ng = tk.kmeans_partial_fit(res, c0, rows, chunk_rows=cr)
+        cc, nc = tk.kmeans_partial_fit(None, c0.cpu(), rows.cpu(),
+                                       chunk_rows=cr)
+    scale = float(cc.abs().max())
+    err = float((cg.cpu() - cc).abs().max())
+    out = dict(chunk_rows=cr, centroid_max_abs_err=err, scale=scale)
+    if err <= REL * scale and torch.equal(ng.cpu(), nc):
+        with tprec.scope("high"):
+            lg, _ = tk.kmeans_predict(res, rows, cg)
+        lc, _ = tk.kmeans_predict(None, rows.cpu(), cc)
+        dscale = ((rows.double() ** 2).sum(1)
+                  + (cc.double() ** 2).sum(1).max().to(dev)).float()
+        ccd = cc.to(dev)
+        bad = labels_agree(lg, lc.to(dev),
+                           lambda r: ((rows[r, None, :] - ccd[None]) ** 2
+                                      ).sum(-1), dscale, REL,
+                           f"partial fit {cr}: labels against the CPU")
+        out["labels_differ"] = int(bad.numel())
+        return out
+    # the passes parted: find the first step whose labels differ
+    c_cpu = c0.cpu().clone()
+    counts = torch.zeros(MAIN_N)
+    for j in range(CD_CPU_ROWS // cr):
+        r = rows[j * cr:(j + 1) * cr]
+        with tprec.scope("high"):
+            _, lab_g = tk._assign(r, c_cpu.to(dev))
+            _, lab_c = tk._assign(r.cpu(), c_cpu)
+        if not torch.equal(lab_g.cpu(), lab_c):
+            dscale = ((r.double() ** 2).sum(1)
+                      + (c_cpu.double() ** 2).sum(1).max().to(dev)).float()
+            cd_ = c_cpu.to(dev)
+            labels_agree(lab_g, lab_c.to(dev),
+                         lambda q: ((r[q, None, :] - cd_[None]) ** 2
+                                    ).sum(-1), dscale, REL,
+                         f"partial fit {cr}: step {j} labels")
+            out["parted_at_near_tie_step"] = j
+            return out
+        with tprec.scope("high"):
+            c_cpu, counts = tk.kmeans_partial_fit(
+                None, c_cpu, r.cpu(), counts=counts, chunk_rows=cr)
+    raise AssertionError(f"partial fit {cr}: centroids off the CPU's by "
+                         f"{err} with the same labels at every step")
+
+
+def cd_partial_part(res, dev, x, c0):
+    """(b): ``kmeans_partial_fit`` over config 3's 1M rows at each
+    CD_CHUNK_ROWS, eager against captured: bitwise, counts summing to
+    the rows, host syncs one a chunk, equal launches; the CPU check; a
+    resume from a mid-batch checkpoint; ms and ops a chunk."""
+    import math
+    import shutil
+
+    import torch
+
+    from raft_tpu_torch.cluster import kmeans as tk
+    from raft_tpu_torch.util import precision as tprec
+
+    def pf(batch, cr, s, **kw):
+        with tprec.scope("high"):
+            return tk.kmeans_partial_fit(res, c0, batch, chunk_rows=cr,
+                                         sync_every=s, **kw)
+
+    out = {}
+    launches = {}
+    for cr in CD_CHUNK_ROWS:
+        n_chunks = -(-MAIN_M // cr)
+        sync = cd_default_sync(dev, cr)
+        pf(x[:CD_CPU_ROWS], cr, None)        # warm-up
+        runs = {}
+        for name, s in (("eager", 1), ("captured", None), ("captured2",
+                                                          None)):
+            o, lc, graphs, wall = cd_run(lambda: pf(x, cr, s))
+            runs[name] = dict(out=o, launches=lc, graphs=graphs,
+                              host_syncs=graphs["host_reads"], wall_s=wall)
+        ce, ne = runs["eager"]["out"]
+        for name in ("captured", "captured2"):
+            cc, nc = runs[name]["out"]
+            check(torch.equal(ce, cc) and torch.equal(ne, nc),
+                  f"partial fit {cr}: {name} not bitwise the host loop")
+        check(float(ne.double().sum()) == MAIN_M,
+              f"partial fit {cr}: counts sum to {float(ne.sum())}")
+        check(runs["eager"]["launches"] == runs["captured2"]["launches"],
+              f"partial fit {cr}: launches {runs['eager']['launches']} vs "
+              f"{runs['captured2']['launches']}")
+        check(runs["captured2"]["host_syncs"] == math.ceil(n_chunks / sync)
+              and runs["eager"]["host_syncs"] == n_chunks,
+              f"partial fit {cr}: host syncs {runs['eager']['host_syncs']}"
+              f" / {runs['captured2']['host_syncs']}")
+        for name, lc in runs["captured2"]["launches"].items():
+            launches[name] = launches.get(name, 0) + lc
+        # a traced pass of at least 4 chunks (the first launches its
+        # steps one by one, the rest replay)
+        small = x[:max(CD_CPU_ROWS, 4 * sync * cr)]
+        traces = {name: cd_trace(lambda: pf(small, cr, s), 1)
+                  for name, s in (("eager", 1), ("captured", None))}
+        steps = small.shape[0] // cr
+        for tr in traces.values():
+            tr["device_ops"] /= steps
+            tr["aten_ops"] /= steps
+            tr["runtime_calls"] = {k: v / steps
+                                   for k, v in tr["runtime_calls"].items()}
+        row = dict(n_chunks=n_chunks, sync_every=sync)
+        for name, key in (("eager", "eager"), ("captured", "captured2")):
+            wall = runs[key]["wall_s"]
+            row[name] = dict(pass_s=wall, ms_per_chunk=wall / n_chunks * 1e3,
+                             chunks_per_s=n_chunks / wall,
+                             host_syncs=runs[key]["host_syncs"],
+                             trace_per_chunk=traces[name])
+        row["graphs"] = runs["captured2"]["graphs"]
+        row["cpu"] = cd_partial_cpu(res, dev, x, c0, cr)
+        out[cr] = row
+    # a resume from a mid-batch checkpoint, bitwise the uninterrupted run
+    cr = CD_CHUNK_ROWS[-1]
+    d = os.path.join(OUT_DIR, "kmeans_pf_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        full = pf(x, cr, None, checkpoint_dir=d, checkpoint_every=1,
+                  checkpoint_keep=64)
+        path = os.path.join(d, f"kmeans_pf-{CD_RESUME_AT:08d}.ckpt")
+        check(os.path.exists(path), f"partial fit: no checkpoint at chunk "
+              f"{CD_RESUME_AT}: {sorted(os.listdir(d))}")
+        resumed = pf(x, cr, None, resume_from=path)
+        check(all(torch.equal(a, b) for a, b in zip(full, resumed)),
+              "partial fit: the resumed run is not bitwise the whole run")
+        out["resume"] = dict(chunk_rows=cr, from_chunk=CD_RESUME_AT,
+                             checkpoints=len(os.listdir(d)), bitwise=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out, launches
+
+
+def compiled_driver_phase(res, dev, x):
+    """The ``compiled_driver`` line: config 3 through ``kmeans_fit`` and
+    ``kmeans_partial_fit`` with captured CUDA-graph chunks against the
+    host loop (``sync_every=1``)."""
+    import torch
+
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.obs import metrics as obs_metrics
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    c0 = x[torch.randperm(MAIN_M, generator=gen, device=dev)[:MAIN_N]]
+    sync = cd_default_sync(dev, MAIN_M)
+    check(sync > 1, f"compiled_driver: default sync_every {sync} on the "
+          "card")
+    was = obs.set_enabled(True)          # solver_host_syncs_total
+    old = obs_metrics.get_registry()
+    try:
+        fit = cd_fit_part(res, dev, x, c0, sync)
+    finally:
+        obs.set_enabled(was)
+        obs_metrics.set_registry(old)
+    partial, pf_launches = cd_partial_part(res, dev, x, c0)
+    launches = {n: fit["launches"].get(n, 0) + pf_launches.get(n, 0)
+                for n in fit["launches"]}
+    emit("compiled_driver", shape=[MAIN_M, MAIN_K], n_clusters=MAIN_N,
+         tier="high", default_sync_every=sync, kmeans_fit=fit,
+         kmeans_partial_fit=partial, launches=launches,
+         seconds=time.perf_counter() - t0)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1372,9 +1826,10 @@ CONFIG5_LLOYD = (10_000_000, 4096, 256)
 
 def device_trace(fn, reps):
     """``reps`` calls of ``fn()`` (after one warm-up) under torch.profiler:
-    the card's kernels and copies as ``(name, start_us, end_us)``, and the
+    the card's kernels and copies as ``(name, start_us, end_us)``, the
     host's CUDA runtime calls counted by name (the trace's closing
-    ``cudaDeviceSynchronize`` among them)."""
+    ``cudaDeviceSynchronize`` among them) and the count of top-level
+    torch ops (CPU events named ``aten::*`` under no other aten op)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1386,14 +1841,19 @@ def device_trace(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    device, runtime = [], {}
+    device, runtime, aten = [], {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             device.append((e.name, e.time_range.start, e.time_range.end))
         elif e.name.startswith("cuda"):
             runtime[e.name] = runtime.get(e.name, 0) + 1
+        elif e.name.startswith("aten::"):
+            parent = e.cpu_parent
+            while parent is not None and not parent.name.startswith("aten::"):
+                parent = parent.cpu_parent
+            aten += parent is None
     check(bool(device), "torch.profiler saw no work on the card")
-    return device, runtime
+    return device, runtime, aten
 
 
 def busy_us(events):
@@ -1411,7 +1871,7 @@ def call_breakdown(fn, reps, kernel):
     calls, ms: kernels whose name holds ``kernel`` (``kernel_ms``), all
     its device work (``busy_ms``), and its first device op to its last
     (``span_ms``: busy time plus the card's wait on the host)."""
-    events, _ = device_trace(fn, reps)
+    events, *_ = device_trace(fn, reps)
     own = sum(e - s for name, s, e in events if kernel in name)
     span = max(e for _, _, e in events) - min(s for _, s, _ in events)
     return dict(kernel_ms=own / reps / 1e3,
@@ -1426,7 +1886,7 @@ def lloyd_split(c, ops, m):
     from raft_tpu_torch.linalg import contractions as tc
 
     reps = 3
-    events, _ = device_trace(lambda: tc.fused_lloyd_prepared(ops, c, m=m),
+    events, *_ = device_trace(lambda: tc.fused_lloyd_prepared(ops, c, m=m),
                              reps)
     argmin = [ev for ev in events if "lloyd_argmin" in ev[0]]
     sums = [ev for ev in events
@@ -4554,7 +5014,7 @@ def ivf_breakdown(fn, reps=3, top=6):
     """Where one search's device time goes, from a trace of ``reps``
     calls: its busy and span ms, the card's idle share between its first
     and last op, and the ``top`` device ops by time (ms a call)."""
-    events, _ = device_trace(fn, reps)
+    events, *_ = device_trace(fn, reps)
     span = max(e for _, _, e in events) - min(s for _, s, _ in events)
     busy = busy_us(events)
     by_name = {}
@@ -6352,10 +6812,15 @@ def main():
     argmin_plan_phase(dev)
     radix_plan_phase()
     small_fit_matches_cpu(res, dev)
+    cd_launches = compiled_driver_phase(res, dev, x)
     pairwise_phase(res, dev)
     unexp_launches, unexp_err = unexpanded_pairwise_phase(res, dev)
     table = kernel_numbers(x, c, ops, parity_errs, launches, predict_ms,
                            hgmma)
+    for row in table:
+        if cd_launches.get(row["name"], 0):
+            row["compiled_driver_launches"] = cd_launches[row["name"]]
+            row["launches"] += cd_launches[row["name"]]
     del x, c, ops
     torch.cuda.empty_cache()
     db, q, knn_launches, _ = knn_path(res, dev)

@@ -19,21 +19,33 @@ Multi-rank, one process a rank over ``raft_tpu_torch.comms``:
 :func:`kmeans_fit_mnmg` the fit around it (BASELINE config 5), with its
 checkpoints (``core.checkpoint``), resume and recovery from a peer's
 failure. :func:`kmeans_fit_elastic` is the host (numpy f64) fit over a
-host-only clique that outlives a killed process. CUDA graphs
-(``sync_every > 1``), observability hooks and the minibatch fit are later
-slices (ROADMAP.md).
+host-only clique that outlives a killed process.
+
+``kmeans_fit(sync_every > 1)`` runs chunks of Lloyd iterations through
+:mod:`raft_tpu_torch.runtime.compiled_driver`: on the card a fit's first
+chunk launches its steps one by one and its later chunks replay a
+captured CUDA graph of the step and its convergence test, and the host
+reads the device once a chunk; the default on the card is 8–16
+(``compiled_driver.default_sync_every`` from the step's estimate), on
+the CPU 1 (the host loop).
+:func:`kmeans_partial_fit` is the minibatch (Sculley) pass through the
+same driver, a ``chunk_rows`` slice a step. ``kmeans_fit_mnmg`` stays
+host-driven: its chunks are ROADMAP queue A item 13b.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
+from raft_tpu_torch.core import hw, trace
 from raft_tpu_torch.core.guards import ConvergenceError, ConvergenceReport
 from raft_tpu_torch.core.resources import as_tensor
 from raft_tpu_torch.distance.pairwise import DistanceType, pairwise_distance
@@ -44,10 +56,10 @@ from raft_tpu_torch.linalg.contractions import (fused_l2_argmin_pallas,
 from raft_tpu_torch.linalg.reduce import _sums_by_key
 from raft_tpu_torch.matrix.epilogue import label_onehot
 from raft_tpu_torch.random.rng_state import RngState
+from raft_tpu_torch.runtime import compiled_driver, limits
 from raft_tpu_torch.util.input_validation import (expect_2d,
                                                   expect_finite,
-                                                  expect_one_sync,
-                                                  resolve_sync_every)
+                                                  expect_one_sync)
 from raft_tpu_torch.util.precision import with_matmul_precision
 
 
@@ -140,6 +152,22 @@ def weighted_lloyd_step(x, w, centroids, n_clusters: int):
     dist, labels = _assign(x, centroids)
     sums, counts, winertia = _weighted_sums(x, w, labels, dist, n_clusters)
     return _finish_update(sums, counts, centroids), winertia, labels
+
+
+def _lloyd_convergence_step(step, carry, tol: float):
+    """The chunked fit's step: one Lloyd update by ``step(c) -> (c,
+    inertia, labels)``, then the host loop's relative-inertia test.
+    ``prev`` is +inf until the first completed iteration (the host's
+    ``prev is None``); the accumulator dtype is float64, so the test
+    matches the host loop's Python-float arithmetic bit for bit."""
+    c, prev, _ = carry
+    new_c, inertia, _ = step(c)
+    cur = inertia.to(prev.dtype)
+    rel = torch.abs(prev - cur) / torch.clamp_min(prev, 1e-30)
+    finite = torch.isfinite(prev)
+    rel = torch.where(finite, rel, float("inf"))
+    done = finite & (rel <= tol)
+    return (new_c, cur, rel), done
 
 
 def _validate_sample_weights(w: torch.Tensor, n_rows: int) -> None:
@@ -252,6 +280,7 @@ def _finish_report(converged: bool, n_iter: int, rel_change: float,
     report = ConvergenceReport(converged=converged, n_iter=int(n_iter),
                                residual=float(rel_change),
                                tol=float(params.tol))
+    obs.record_convergence(op, report)
     if not converged:
         if strict:
             raise ConvergenceError(
@@ -275,10 +304,22 @@ def kmeans_fit(res, params: KMeansParams, x,
     ``x`` as a tensor runs on its device; as an array it goes to the
     handle's device. Convergence: the relative change of the inertia
     between two polls is at most ``tol``. Polls come every
-    ``check_every`` iterations, and at ``max_iter``. With
-    ``sync_every > 1`` the reference package tests convergence in its
-    compiled loop after every iteration; the port's host loop does the
-    same, so ``n_iter`` matches it in both modes.
+    ``check_every`` iterations, and at ``max_iter``.
+
+    ``sync_every``: with n > 1, chunks of n Lloyd iterations run through
+    :func:`~raft_tpu_torch.runtime.compiled_driver.run_chunked` with the
+    convergence test in the chunk after every iteration; on the card the
+    first chunk launches its steps one by one, later chunks replay a
+    captured CUDA graph of the step, and the host reads the device once
+    a chunk.
+    ``sync_every=1`` is the host loop. The default ``None`` asks the cost
+    model with the step's estimated seconds: 1 on the CPU, 8–16 on a
+    CUDA card (a step after convergence still launches, masked; its
+    Lloyd pass is gated off, so it costs its launches). A weighted fit,
+    and a fit whose step is estimated below a launch's host overhead
+    (``compiled_driver.DISPATCH_OVERHEAD_S``), default to the host loop
+    on the card too: their masked steps would cost what active ones do.
+    Captured chunks and the host loop give the same bits.
 
     ``strict=True`` raises :class:`ConvergenceError` when ``max_iter``
     passes unconverged; ``return_report=True`` appends the
@@ -293,34 +334,69 @@ def kmeans_fit(res, params: KMeansParams, x,
         w = torch.as_tensor(sample_weights, device=x.device)
         _validate_sample_weights(w, x.shape[0])
         w = w.to(torch.float32)
-    sync = resolve_sync_every(sync_every)
-    check = 1 if sync > 1 else max(1, int(params.check_every))
+    dims = dict(m=int(x.shape[0]), k=int(x.shape[1]),
+                n_clusters=params.n_clusters, itemsize=x.element_size())
+    backend = hw.backend_of(x.device)
+    est = limits.estimate_seconds("cluster.lloyd_step", backend=backend,
+                                  **dims)
+    # the host loop by default where chunks gain nothing on the card: a
+    # weighted fit (its update is not gated, so a masked step costs a
+    # whole step) and a step shorter than a launch's host overhead (its
+    # masked steps cost what its active ones do)
+    overhead = compiled_driver.DISPATCH_OVERHEAD_S.get(backend, 0.0)
+    if sync_every is None and (w is not None or est < overhead):
+        sync_every = 1
+    sync = compiled_driver.resolve_sync_every(sync_every, step_seconds=est,
+                                              device=x.device)
     c = _init_centroids(params, x, centroids, sample_weights=w)
     ops, meta = (None, None) if w is not None \
         else lloyd_prepare(x, params.n_clusters)
-    prev_inertia = None
+    # one Lloyd update, c -> (c, inertia, labels)
+    if ops is not None:
+        step = functools.partial(lloyd_step_prepared, ops, **meta)
+    elif w is not None:
+        step = functools.partial(weighted_lloyd_step, x, w,
+                                 n_clusters=params.n_clusters)
+    else:
+        step = functools.partial(lloyd_step, x,
+                                 n_clusters=params.n_clusters)
     n_iter = 0
     converged = False
     rel_change = float("inf")
-    while n_iter < params.max_iter:
-        block = min(check, params.max_iter - n_iter)
-        if ops is not None:
-            c, inertia, _ = lloyd_iterate_prepared(ops, c, block, **meta)
-        else:
+    if sync > 1:
+        # chunks of sync iterations, convergence tested in the chunk:
+        # the host reads the device once a chunk
+        tol = float(params.tol)
+        loop = compiled_driver.ChunkLoop(
+            lambda cr: _lloyd_convergence_step(step, cr, tol))
+        sf, sb = limits.estimate_flops_bytes("cluster.lloyd_step", **dims)
+        acc = compiled_driver.host_float_dtype()
+        inf = torch.full((), float("inf"), dtype=acc, device=x.device)
+        carry = (c, inf, inf.clone())
+        carry, n_iter, done = compiled_driver.run_chunked(
+            loop, carry, max_steps=params.max_iter,
+            sync_every=sync, op=op, est_step_seconds=est, step_flops=sf,
+            step_bytes=sb)
+        c = carry[0]
+        rel_change = float(carry[2])
+        converged = bool(done)
+    else:
+        check = max(1, int(params.check_every))
+        prev_inertia = None
+        while n_iter < params.max_iter:
+            block = min(check, params.max_iter - n_iter)
             for _ in range(block):
-                if w is None:
-                    c, inertia, _ = lloyd_step(x, c, params.n_clusters)
-                else:
-                    c, inertia, _ = weighted_lloyd_step(x, w, c,
-                                                        params.n_clusters)
-        n_iter += block
-        cur = float(inertia)
-        if prev_inertia is not None:
-            rel_change = abs(prev_inertia - cur) / max(prev_inertia, 1e-30)
-            if rel_change <= params.tol:
-                converged = True
-                break
-        prev_inertia = cur
+                c, inertia, _ = step(c)
+            n_iter += block
+            limits.check_deadline(op)
+            cur = float(inertia)
+            if prev_inertia is not None:
+                rel_change = abs(prev_inertia - cur) / max(prev_inertia,
+                                                           1e-30)
+                if rel_change <= params.tol:
+                    converged = True
+                    break
+            prev_inertia = cur
     # the step's labels are against its input centroids: assign once more
     # so the returned triple is self-consistent
     dist, labels = _assign(x, c)
@@ -330,6 +406,172 @@ def kmeans_fit(res, params: KMeansParams, x,
     if return_report:
         return c, inertia, labels, n_iter, report
     return c, inertia, labels, n_iter
+
+
+def _minibatch_step(x, valid, *, n_clusters: int, chunk_rows: int):
+    """The step of a mini-batch pass, ``(c, counts, j) -> ((c, counts,
+    j + 1), done)``, one Sculley update; :class:`compiled_driver.ChunkLoop`
+    runs it in chunks.
+
+    Each step consumes one ``chunk_rows`` slice of the padded batch:
+    nearest-centroid assignment (the fused argmin the full fit uses),
+    then the count-weighted running-mean update
+    ``c += (sums - n_assigned·c) / counts_new``: per-cluster learning
+    rate 1/lifetime-count, so a cluster first touched this batch lands
+    exactly on its batch mean and long-lived clusters move gently.
+    ``valid`` zero-weights the pad rows. The slice's rows are gathered at
+    ``j * chunk_rows + arange(chunk_rows)`` from the device cursor ``j``,
+    so a captured graph reads the rows of the step it replays."""
+    n_chunks = x.shape[0] // chunk_rows
+
+    def step(carry):
+        c, counts, j = carry
+        # a masked step past the last slice reads the last slice again
+        # (as dynamic_slice clamps) and its result is discarded
+        jj = torch.clamp_max(j, n_chunks - 1).to(torch.int64)
+        idx = jj * chunk_rows + torch.arange(chunk_rows, device=x.device)
+        rows = x.index_select(0, idx)
+        vw = valid.index_select(0, idx)
+        dist, labels = _assign(rows, c)
+        sums, cnt, _ = _weighted_sums(rows, vw, labels, dist, n_clusters)
+        new_counts = counts + cnt
+        safe = torch.where(new_counts > 0, new_counts, 1.0)
+        cf = c.to(torch.float32)
+        new_c = (cf + (sums - cnt[:, None] * cf)
+                 / safe[:, None]).to(c.dtype)
+        return (new_c, new_counts, j + 1), (j + 1) >= n_chunks
+
+    return step
+
+
+@with_matmul_precision
+def kmeans_partial_fit(res, centroids, batch, *, counts=None,
+                       chunk_rows: int = 256, sync_every=None,
+                       checkpoint_dir: Optional[str] = None,
+                       checkpoint_every: Optional[int] = None,
+                       checkpoint_keep: int = 2,
+                       resume_from: Optional[str] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One mini-batch k-means pass over ``batch`` (Sculley 2010): nudge
+    ``centroids`` toward the stream without a full refit. Returns
+    ``(new_centroids, new_counts)`` where ``counts`` is the float32
+    per-cluster lifetime mass: thread it through successive calls so the
+    per-cluster learning rate keeps decaying (``None`` starts cold: the
+    first batch lands each touched cluster on its batch mean).
+
+    ``centroids`` as a tensor sets the device (an array goes to the
+    handle's), and an array ``batch`` follows it. The batch is consumed in ``chunk_rows`` slices through
+    :func:`~raft_tpu_torch.runtime.compiled_driver.run_chunked`
+    (``sync_every`` slices a chunk; on the card the chunks after the
+    first replay a captured CUDA graph of one step), so the pass has the
+    driver's checkpoint, deadline and trace boundary hooks.
+
+    ``checkpoint_every`` (in boundary units; requires
+    ``checkpoint_dir``) saves ``(centroids, counts, chunk)`` at chunk
+    boundaries through :class:`~raft_tpu_torch.core.checkpoint
+    .CheckpointManager` (prefix ``kmeans_pf``, newest
+    ``checkpoint_keep`` kept), and ``resume_from`` (a checkpoint file
+    or directory) restarts mid-batch from the saved chunk cursor: the
+    SAME ``batch`` must be passed again, since the cursor indexes into
+    it. The file format is the reference package's."""
+    centroids = _as_data(centroids, res)
+    if not isinstance(batch, torch.Tensor):
+        batch = torch.as_tensor(np.asarray(batch), device=centroids.device)
+    batch = _as_data(batch, res)
+    if batch.device != centroids.device:
+        raise ValueError(f"batch on {batch.device}, centroids on "
+                         f"{centroids.device}")
+    if centroids.dim() != 2:
+        raise ValueError(f"centroids must be [k, d], got "
+                         f"{tuple(centroids.shape)}")
+    if batch.dim() != 2 or batch.shape[1] != centroids.shape[1]:
+        raise ValueError(f"batch must be [n, {centroids.shape[1]}], "
+                         f"got {tuple(batch.shape)}")
+    if batch.shape[0] < 1:
+        raise ValueError("batch must have at least one row")
+    if chunk_rows < 1:
+        raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
+    n_clusters = int(centroids.shape[0])
+    if counts is None:
+        counts = torch.zeros((n_clusters,), dtype=torch.float32,
+                             device=centroids.device)
+    else:
+        counts = torch.as_tensor(counts, dtype=torch.float32).to(
+            centroids.device)
+        if tuple(counts.shape) != (n_clusters,):
+            raise ValueError(f"counts must be [{n_clusters}], got "
+                             f"{tuple(counts.shape)}")
+    n = int(batch.shape[0])
+    chunk_rows = min(int(chunk_rows), n)
+    n_chunks = -(-n // chunk_rows)
+    pad = n_chunks * chunk_rows - n
+    valid = torch.ones((n,), dtype=batch.dtype, device=batch.device)
+    if pad:
+        batch = torch.cat([batch, batch.new_zeros((pad, batch.shape[1]))])
+        valid = torch.cat([valid, valid.new_zeros((pad,))])
+    loop = compiled_driver.ChunkLoop(_minibatch_step(
+        batch, valid, n_clusters=n_clusters, chunk_rows=chunk_rows))
+    dims = dict(m=chunk_rows, k=int(batch.shape[1]),
+                n_clusters=n_clusters, itemsize=batch.element_size())
+    est = limits.estimate_seconds("cluster.lloyd_step",
+                                  backend=hw.backend_of(batch.device),
+                                  **dims)
+    sf, sb = limits.estimate_flops_bytes("cluster.lloyd_step", **dims)
+    sync = compiled_driver.resolve_sync_every(
+        sync_every, step_seconds=est, device=batch.device)
+
+    manager = None
+    if checkpoint_every is not None:
+        if checkpoint_dir is None:
+            raise ValueError("checkpoint_every requires checkpoint_dir")
+        from raft_tpu_torch.core import checkpoint as core_ckpt
+
+        manager = core_ckpt.CheckpointManager(
+            checkpoint_dir, prefix="kmeans_pf", keep=checkpoint_keep)
+    start_chunk = 0
+    if resume_from is not None:
+        entries = _load_kmeans_checkpoint(resume_from, prefix="kmeans_pf")
+        centroids = torch.as_tensor(np.asarray(entries["centroids"])).to(
+            device=centroids.device, dtype=centroids.dtype)
+        counts = torch.as_tensor(np.asarray(entries["counts"])).to(
+            device=centroids.device, dtype=torch.float32)
+        start_chunk = int(entries["chunk"])
+        if start_chunk > n_chunks:
+            raise ValueError(
+                f"resume_from chunk {start_chunk} beyond this batch's "
+                f"{n_chunks} chunks — pass the SAME batch the "
+                "checkpoint was cut from")
+
+    boundary = None
+    if manager is not None:
+        stride = sync * max(1, int(checkpoint_every))
+        last_saved = [start_chunk if resume_from is not None else -1]
+
+        def boundary(cr, steps_done, done_flag):
+            if steps_done > 0 and (
+                    steps_done - max(last_saved[0], 0) >= stride
+                    or ((done_flag or steps_done >= n_chunks)
+                        and steps_done != last_saved[0])):
+                manager.save(steps_done, {
+                    "centroids": cr[0].cpu().numpy(),
+                    "counts": cr[1].cpu().numpy(),
+                    "chunk": int(steps_done),
+                })
+                last_saved[0] = steps_done
+
+    cursor = torch.full((), start_chunk, dtype=torch.int32,
+                        device=centroids.device)
+    carry = (centroids, counts, cursor)
+    carry, n_steps, _ = compiled_driver.run_chunked(
+        loop, carry, max_steps=n_chunks, sync_every=sync,
+        op="cluster.kmeans_partial_fit", steps_done=start_chunk,
+        est_step_seconds=est, step_flops=sf, step_bytes=sb,
+        boundary=boundary)
+    trace.record_event("kmeans.partial_fit", rows=n,
+                       n_clusters=n_clusters, chunks=int(n_steps),
+                       chunk_rows=chunk_rows)
+    new_c, new_counts, _ = carry
+    return new_c, new_counts
 
 
 @with_matmul_precision

@@ -96,6 +96,32 @@ def _parse_precision(raw: str) -> str:
     return canon
 
 
+def _parse_peaks(raw: str) -> Dict[str, float]:
+    """``flops=<num>,bytes=<num>`` device-peak override terms (either
+    term may be omitted; at least one must be present, both positive)."""
+    out: Dict[str, float] = {}
+    for part in raw.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        key, sep, val = part.partition("=")
+        key = key.strip().lower()
+        if not sep or key not in ("flops", "bytes"):
+            raise ValueError(
+                f"want 'flops=<num>,bytes=<num>' terms, got {part!r}")
+        try:
+            num = float(val)
+        except ValueError:
+            raise ValueError(f"{val!r} is not a number") from None
+        if not num > 0.0:
+            raise ValueError(f"{key} peak must be positive, got {val!r}")
+        out[key] = num
+    if not out:
+        raise ValueError(
+            "want at least one 'flops=<num>' or 'bytes=<num>' term")
+    return out
+
+
 def _choice(*options: str) -> Callable[[str], str]:
     def parse(raw: str) -> str:
         low = raw.lower()
@@ -206,6 +232,10 @@ register("RAFT_TPU_DEBUG_LOG_FILE", _parse_str, None, on_malformed="warn",
          help="route the raft_tpu logger to a file instead of stderr")
 register("RAFT_TPU_FLIGHT_DIR", _parse_str, None, on_malformed="warn",
          help="on-disk flight-recorder bundle directory")
+register("RAFT_TPU_PERF", _parse_onoff, False, on_malformed="warn",
+         help="arm per-executable performance attribution "
+              "(obs/perf.py roofline telemetry); off = single-bool "
+              "no-op, bit-identical")
 
 # Fail-loud knobs: malformed raises at the read site.
 register("RAFT_TPU_MATMUL_PRECISION", _parse_precision, "high",
@@ -224,3 +254,8 @@ register("RAFT_TPU_SPAN_RETAIN", _parse_pos_int, 2048,
 register("RAFT_TPU_SPAN_SAMPLE", _parse_rate, 1.0,
          help="span sampling rate in [0, 1] (counter-stride, "
               "deterministic)")
+register("RAFT_TPU_PERF_PEAKS", _parse_peaks, None,
+         help="override the core/hw.py device-peak table: "
+              "'flops=<num>,bytes=<num>' per-second peaks (either term "
+              "alone overrides just that axis); malformed raises at the "
+              "read site")

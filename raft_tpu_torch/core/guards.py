@@ -85,5 +85,5 @@ def resolve_guard_mode(override: Optional[str] = None) -> str:
     if mode != "off":
         raise NotImplementedError(
             f"guard_mode={mode!r} is not ported yet (ROADMAP.md, queue A "
-            "item 13: runtime + obs); use guard_mode=None or 'off'")
+            "item 13b: guard modes); use guard_mode=None or 'off'")
     return mode

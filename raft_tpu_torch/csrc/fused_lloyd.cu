@@ -52,6 +52,13 @@
 //       partials in chunk order.
 // No float atomics, no host sync; scratch is O(m + chunks (n + k)).
 //
+// A captured chunk of k-means steps (runtime/compiled_driver.py) replays
+// a step after its loop has converged, masked: its result is discarded.
+// Such a step passes a gate, a device int that is 0 when the step is
+// masked, and every kernel of the pass then returns at once, so a masked
+// step costs the launches and not the pass. The outputs are then left as
+// they were. A null gate always runs.
+//
 // Bound on an H100 SXM: operations. At 1M x 128, k = 1024, tier 'high' the
 // distance is 8.1e11 bf16 products, three a pair (0.81 ms at 989 TFLOP/s);
 // the sums read X's halves once more (0.5 GB, 0.16 ms at 3.35 TB/s).
@@ -65,6 +72,11 @@ namespace raft_port {
 constexpr int kSeg = 256;        // sorted rows a warp of the sums takes
 constexpr int kSumThreads = 256;
 constexpr int kScanThreads = 1024;
+
+// The pass is masked (see the header): every kernel returns at once.
+__device__ __forceinline__ bool gated_off(const int* gate) {
+  return gate != nullptr && *gate == 0;
+}
 
 // ---------------------------------------------------------------------------
 // stage 1: argmin
@@ -83,7 +95,9 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     lloyd_argmin_wgmma(const uint16_t* x0, const uint16_t* x1,
                        const float* xn, int64_t ldx, const uint16_t* y0,
                        const uint16_t* y1, const float* yn, int64_t ldy,
-                       float* val, int* idx, int m, int n, int k) {
+                       float* val, int* idx, int m, int n, int k,
+                       const int* gate) {
+  if (gated_off(gate)) return;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -132,7 +146,9 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 __global__ void __launch_bounds__(THREADS)
     lloyd_argmin_fma(const void* x0, const float* xn, int64_t ldx,
                      const void* y0, const float* yn, int64_t ldy,
-                     float* val, int* idx, int m, int n, int k) {
+                     float* val, int* idx, int m, int n, int k,
+                     const int* gate) {
+  if (gated_off(gate)) return;
   __shared__ TileSmem<kTierHighest> s;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   for (int64_t tile = blockIdx.x; tile * BM < m; tile += gridDim.x) {
@@ -164,7 +180,8 @@ __device__ __forceinline__ int sort_label(const int* idx, int64_t r,
 // 32 rows a step, one read-modify-write a distinct label (its lowest lane).
 __global__ void __launch_bounds__(kSumThreads)
     lloyd_hist(const int* idx, int* hist, int m, int n, int chunk,
-               int chunks) {
+               int chunks, const int* gate) {
+  if (gated_off(gate)) return;
   const int w = (blockIdx.x * kSumThreads + threadIdx.x) / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (w >= chunks) return;
@@ -185,7 +202,9 @@ __global__ void __launch_bounds__(kSumThreads)
 // total[c] the rows of label c. A block takes 32 labels (a lane each) and
 // splits the chunks among its 32 warps.
 __global__ void __launch_bounds__(kScanThreads)
-    lloyd_scan_chunks(int* hist, int* total, int n, int chunks) {
+    lloyd_scan_chunks(int* hist, int* total, int n, int chunks,
+                      const int* gate) {
+  if (gated_off(gate)) return;
   __shared__ int part[kWarp][kWarp + 1];
   const int lane = threadIdx.x % kWarp, q = threadIdx.x / kWarp;
   const int c = blockIdx.x * kWarp + lane;
@@ -212,7 +231,9 @@ __global__ void __launch_bounds__(kScanThreads)
 // start[c] = the rows of labels below c, start[n] = all labelled rows;
 // counts[c] = total[c]. One block: thread t takes a run of labels.
 __global__ void __launch_bounds__(kScanThreads)
-    lloyd_scan_labels(const int* total, int* start, float* counts, int n) {
+    lloyd_scan_labels(const int* total, int* start, float* counts, int n,
+                      const int* gate) {
+  if (gated_off(gate)) return;
   __shared__ int warp_sum[kScanThreads / kWarp];
   const int lane = threadIdx.x % kWarp, q = threadIdx.x / kWarp;
   const int per = (n + kScanThreads - 1) / kScanThreads;
@@ -243,7 +264,8 @@ __global__ void __launch_bounds__(kScanThreads)
 // c], and hist[w][c] advances past them.
 __global__ void __launch_bounds__(kSumThreads)
     lloyd_place(const int* idx, int* hist, const int* start, int* order,
-                int m, int n, int chunk, int chunks) {
+                int m, int n, int chunk, int chunks, const int* gate) {
+  if (gated_off(gate)) return;
   const int w = (blockIdx.x * kSumThreads + threadIdx.x) / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (w >= chunks) return;
@@ -344,7 +366,8 @@ __global__ void __launch_bounds__(kSumThreads)
     lloyd_sums(const int* __restrict__ start,
                ClusterRows<E, HALVES, VW> rows, float* __restrict__ sums,
                float* __restrict__ part, int64_t group_warps, int n, int k,
-               int lpe) {
+               int lpe, const int* gate) {
+  if (gated_off(gate)) return;
   const int64_t w =
       (static_cast<int64_t>(blockIdx.x) * kSumThreads + threadIdx.x) / kWarp;
   if (w < group_warps)
@@ -357,7 +380,9 @@ __global__ void __launch_bounds__(kSumThreads)
 // warp a cluster.
 __global__ void __launch_bounds__(kSumThreads)
     lloyd_fixup(const int* __restrict__ start, float* __restrict__ sums,
-                const float* __restrict__ part, int n, int k) {
+                const float* __restrict__ part, int n, int k,
+                const int* gate) {
+  if (gated_off(gate)) return;
   const int64_t c =
       (static_cast<int64_t>(blockIdx.x) * kSumThreads + threadIdx.x) / kWarp;
   if (c >= n) return;
@@ -380,14 +405,14 @@ template <typename E, int HALVES, int VW>
 static void launch_sums(const int* start, const int* order, const void* x0,
                         const void* x1, int64_t ldx, float* sums,
                         float* part, int n_chunks, int n, int k,
-                        cudaStream_t st) {
+                        const int* gate, cudaStream_t st) {
   const int lpe = seg::lanes_for(k < kWarp * VW ? k : kWarp * VW, VW);
   const int64_t group_warps = (n + kWarp / lpe - 1) / (kWarp / lpe);
   const ClusterRows<E, HALVES, VW> rows{order, static_cast<const E*>(x0),
                                         static_cast<const E*>(x1), ldx};
   lloyd_sums<E, HALVES, VW><<<blocks_for(group_warps + n_chunks),
                               kSumThreads, 0, st>>>(
-      start, rows, sums, part, group_warps, n, k, lpe);
+      start, rows, sums, part, group_warps, n, k, lpe, gate);
 }
 
 template <int HALVES>
@@ -396,7 +421,8 @@ static cudaError_t launch_argmin_wgmma(const void* x0, const void* x1,
                                        const void* y0, const void* y1,
                                        const float* yn, int64_t ldy,
                                        float* val, int* idx, int grid, int m,
-                                       int n, int k, cudaStream_t st) {
+                                       int n, int k, const int* gate,
+                                       cudaStream_t st) {
   auto kern = lloyd_argmin_wgmma<HALVES>;
   constexpr int smem = wg::Layout<HALVES>::kRingBytes + 1024;  // + alignment
   const cudaError_t err = cudaFuncSetAttribute(
@@ -405,7 +431,7 @@ static cudaError_t launch_argmin_wgmma(const void* x0, const void* x1,
   kern<<<grid, wg::kThreads, smem, st>>>(
       static_cast<const uint16_t*>(x0), static_cast<const uint16_t*>(x1), xn,
       ldx, static_cast<const uint16_t*>(y0),
-      static_cast<const uint16_t*>(y1), yn, ldy, val, idx, m, n, k);
+      static_cast<const uint16_t*>(y1), yn, ldy, val, idx, m, n, k, gate);
   return cudaSuccess;
 }
 
@@ -418,14 +444,15 @@ static cudaError_t launch_argmin_wgmma(const void* x0, const void* x1,
 // the sums' width. grid: the argmin's persistent blocks. iscr: int
 // scratch of chunks x n + n + (n + 1) + m words, chunks = ceil(m /
 // chunk); part: f32 scratch of (m / 256 + 1) x k. Returns the CUDA error
-// of the launches (0 on success).
+// of the launches (0 on success). gate: null, or a device int that masks
+// the pass where it is 0 (see the header).
 extern "C" int raft_fused_lloyd(int tier, const void* x0, const void* x1,
                                 const float* xn, int64_t ldx, const void* y0,
                                 const void* y1, const float* yn, int64_t ldy,
                                 float* sums, float* counts, float* val,
                                 int* idx, int* iscr, float* part, int grid,
                                 int m, int n, int kd, int k, int chunk,
-                                void* stream) {
+                                const int* gate, void* stream) {
   using namespace raft_port;
   const bool high = tier == kTierHigh;
   if (tier < 0 || tier > 2 || m < 1 || n < 1 || k < 1 || kd < k ||
@@ -441,13 +468,13 @@ extern "C" int raft_fused_lloyd(int tier, const void* x0, const void* x1,
   cudaError_t err = cudaSuccess;
   if (tier == kTierHighest)
     lloyd_argmin_fma<<<grid, THREADS, 0, st>>>(x0, xn, ldx, y0, yn, ldy, val,
-                                               idx, m, n, k);
+                                               idx, m, n, k, gate);
   else if (high)
     err = launch_argmin_wgmma<2>(x0, x1, xn, ldx, y0, y1, yn, ldy, val, idx,
-                                 grid, m, n, kd, st);
+                                 grid, m, n, kd, gate, st);
   else
     err = launch_argmin_wgmma<1>(x0, x1, xn, ldx, y0, y1, yn, ldy, val, idx,
-                                 grid, m, n, kd, st);
+                                 grid, m, n, kd, gate, st);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -456,29 +483,30 @@ extern "C" int raft_fused_lloyd(int tier, const void* x0, const void* x1,
   int* total = hist + static_cast<int64_t>(chunks) * n;
   int* start = total + n;
   int* order = start + n + 1;
-  lloyd_hist<<<blocks_for(chunks), kSumThreads, 0, st>>>(idx, hist, m, n,
-                                                          chunk, chunks);
+  lloyd_hist<<<blocks_for(chunks), kSumThreads, 0, st>>>(
+      idx, hist, m, n, chunk, chunks, gate);
   lloyd_scan_chunks<<<(n + kWarp - 1) / kWarp, kScanThreads, 0, st>>>(
-      hist, total, n, chunks);
-  lloyd_scan_labels<<<1, kScanThreads, 0, st>>>(total, start, counts, n);
+      hist, total, n, chunks, gate);
+  lloyd_scan_labels<<<1, kScanThreads, 0, st>>>(total, start, counts, n,
+                                                 gate);
   lloyd_place<<<blocks_for(chunks), kSumThreads, 0, st>>>(
-      idx, hist, start, order, m, n, chunk, chunks);
+      idx, hist, start, order, m, n, chunk, chunks, gate);
   const int n_chunks = m / kSeg + 1;
   if (tier == kTierHighest) {
     if (k % 4 == 0 && ldx % 4 == 0 && wg::aligned16(x0))
       launch_sums<float, 1, 4>(start, order, x0, x1, ldx, sums, part,
-                               n_chunks, n, k, st);
+                               n_chunks, n, k, gate, st);
     else
       launch_sums<float, 1, 1>(start, order, x0, x1, ldx, sums, part,
-                               n_chunks, n, k, st);
+                               n_chunks, n, k, gate, st);
   } else if (high) {
     launch_sums<uint16_t, 2, 8>(start, order, x0, x1, ldx, sums, part,
-                                n_chunks, n, k, st);
+                                n_chunks, n, k, gate, st);
   } else {
     launch_sums<uint16_t, 1, 8>(start, order, x0, x1, ldx, sums, part,
-                                n_chunks, n, k, st);
+                                n_chunks, n, k, gate, st);
   }
   lloyd_fixup<<<blocks_for(n), kSumThreads, 0, st>>>(start, sums, part, n,
-                                                      k);
+                                                      k, gate);
   return static_cast<int>(cudaGetLastError());
 }

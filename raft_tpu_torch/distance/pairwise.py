@@ -17,7 +17,7 @@
   blocks of 1024 rows of x to bound the ``[rows, n, k]`` intermediate.
 
 Not ported: guard modes other than ``off`` and the ``runtime.limits``
-row tiling (ROADMAP.md queue A item 13).
+row tiling (ROADMAP.md queue A item 13b).
 """
 
 from __future__ import annotations

@@ -10,18 +10,27 @@ reference package. The kernels are built at first use
 
 A wrapper adds one to its kernel's counter each time it launches the
 kernel, and nowhere else, so a run can show that a path went through
-the kernels (:func:`reset_launch_counts`, :func:`launch_counts`).
+the kernels (:func:`reset_launch_counts`, :func:`launch_counts`). A
+launch recorded into a CUDA graph under capture launches nothing then:
+it goes to the capture's tally (:func:`capture_launches`), and each
+replay of the graph adds the tally to the counters
+(:func:`count_replay`), so replayed kernels are counted as they run.
+A masked step of a chunk is launched or captured under a device flag
+(:func:`gated`); a kernel that takes a gate (``fused_lloyd``) reads it
+(:func:`gate_ptr`) and does no work where it is 0.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 __all__ = ["KernelSpec", "KernelLaunchError", "REGISTRY", "launch",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "capture_launches",
+           "count_replay", "gated", "gate_ptr"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,9 +86,9 @@ REGISTRY: Dict[str, KernelSpec] = {
             source="csrc/fused_lloyd.cu",
             symbol="raft_fused_lloyd",
             # tier, operands..., sums, counts, val, idx, iscr, part,
-            # grid, m, n, kd, k, chunk, stream
+            # grid, m, n, kd, k, chunk, gate, stream
             argtypes=(_I,) + _OPERANDS + (_P, _P, _P, _P, _P, _P, _I, _I,
-                                          _I, _I, _I, _I, _P),
+                                          _I, _I, _I, _I, _P, _P),
             plain="raft_tpu_torch.linalg.contractions._lloyd_plain",
             ports="raft_tpu/linalg/contractions.py:_lloyd_kernel, "
                   "_lloyd_kernel_split",
@@ -209,6 +218,7 @@ REGISTRY: Dict[str, KernelSpec] = {
 
 _lock = threading.Lock()
 _launches: Dict[str, int] = {name: 0 for name in REGISTRY}
+_capture = threading.local()
 
 
 class KernelLaunchError(RuntimeError):
@@ -226,10 +236,54 @@ def reset_launch_counts() -> None:
             _launches[name] = 0
 
 
+@contextlib.contextmanager
+def capture_launches() -> Iterator[Dict[str, int]]:
+    """While a CUDA graph is captured on this thread: the dict the
+    captured launches are tallied into instead of the counters."""
+    prev = getattr(_capture, "tally", None)
+    tally: Dict[str, int] = {}
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = prev
+
+
+def count_replay(tally: Dict[str, int]) -> None:
+    """Count the launches of one replay of a graph whose capture tallied
+    ``tally``."""
+    with _lock:
+        for name, n in tally.items():
+            _launches[name] += n
+
+
+@contextlib.contextmanager
+def gated(flag) -> Iterator[None]:
+    """While a masked step is launched or captured on this thread:
+    ``flag``, a 0-d int32 tensor on the card, is the gate of the kernels
+    that take one: where it is 0 when they run, they return at once
+    (their outputs are left as they were, and the masked step discards
+    them)."""
+    prev = getattr(_capture, "gate", None)
+    _capture.gate = flag
+    try:
+        yield
+    finally:
+        _capture.gate = prev
+
+
+def gate_ptr() -> int:
+    """The address of the flag of :func:`gated` on this thread, else 0
+    (a null gate: the kernel always runs)."""
+    flag = getattr(_capture, "gate", None)
+    return 0 if flag is None else flag.data_ptr()
+
+
 def launch(name: str, device, *args) -> None:
     """Launch kernel ``name`` on ``device``'s current stream: ``args``
     are the entry point's arguments without the trailing stream. Raises
-    :class:`KernelLaunchError` on a CUDA error and counts the launch."""
+    :class:`KernelLaunchError` on a CUDA error and counts the launch
+    (under :func:`capture_launches`, into the capture's tally)."""
     import torch
 
     from raft_tpu_torch.kernels import build
@@ -240,5 +294,9 @@ def launch(name: str, device, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise KernelLaunchError(f"{name}: CUDA error {err} at launch")
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+        return
     with _lock:
         _launches[name] += 1

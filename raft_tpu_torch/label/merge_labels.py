@@ -9,7 +9,7 @@ scatter-min propagation (``scatter_reduce_(..., "amin")`` from both
 sides of every masked pair) and path halving (``r = min(r, r[r])``),
 the original CUDA design: the host reads one change flag a round. The
 reference keeps the loop on the device (``lax.while_loop``), which torch
-has no equivalent of without graphs (ROADMAP.md, queue A item 13). The
+has no equivalent of without graphs (ROADMAP.md, queue A item 13b). The
 cap is the reference's diameter-safe ``N + 2`` rounds: an adversarial
 chain moves its minimum one hop a round.
 """

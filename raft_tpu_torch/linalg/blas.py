@@ -18,7 +18,7 @@ is the f32 product of the bf16 values, which are exact in f32. No tier
 runs in TF32. f64 operands
 accumulate in f64 (``compute_type``).
 
-Not ported yet (ROADMAP.md, queue A item 13): the ``runtime.limits``
+Not ported yet (ROADMAP.md, queue A item 13b): the ``runtime.limits``
 work-budget admission (with no budget active the reference skips it
 too) and the guard modes 'check' and 'recover', which raise
 ``NotImplementedError``.

@@ -4,7 +4,7 @@ Given L of A[:n-1, :n-1] and the new column A[:, n-1], the new row of L
 is a triangular solve and the new pivot ``sqrt(a[n-1] - xᵀx)``, floored
 at ``eps`` when ``eps > 0``. With ``eps = 0`` a negative pivot gives NaN
 (guard mode 'off'); the reference's 'check' and 'recover' pivot guards
-come with ROADMAP.md, queue A item 13 (they raise
+come with ROADMAP.md, queue A item 13b (they raise
 ``NotImplementedError`` here).
 """
 

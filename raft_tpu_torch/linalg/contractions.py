@@ -515,7 +515,8 @@ def _fused_lloyd(tier: str, xs: Side, ys: Side, m: int, n: int, k: int,
     CUDA, its argmin on ``blocks`` persistent blocks (default one a
     multiprocessor; a test passes fewer to put many row tiles on each
     block; no result depends on it). ``x_zero_tail``: as
-    :func:`_wgmma_side`."""
+    :func:`_wgmma_side`. Under :func:`kernels.gated` (a masked step of
+    a chunk) the pass does no work where the gate is 0."""
     if _on_cpu(xs, ys):
         return _lloyd_plain(tier, xs, ys, m, n, k)
     _check_side(xs, tier, m, k, "x")
@@ -537,7 +538,7 @@ def _fused_lloyd(tier: str, xs: Side, ys: Side, m: int, n: int, k: int,
                    *_operand_args(xs, ys), sums.data_ptr(),
                    counts.data_ptr(), val.data_ptr(), idx.data_ptr(),
                    iscr.data_ptr(), part.data_ptr(), plan.grid, m, n, kd, k,
-                   plan.row_chunk)
+                   plan.row_chunk, kernels.gate_ptr())
     return sums, counts, val, idx
 
 

@@ -16,7 +16,7 @@ at n = 1024, where both are bound by the host's launches (``PERF.md``).
 requested pairs only, checks their residuals and Gram matrix, and
 falls back to the exact slice when they fail, as the reference does.
 
-Not ported yet (ROADMAP.md, queue A item 13): ``eig_jacobi``'s guard
+Not ported yet (ROADMAP.md, queue A item 13b): ``eig_jacobi``'s guard
 modes 'check'/'recover' (the f64 escalation) and its convergence
 metrics (``obs.record_convergence``).
 """

@@ -16,7 +16,7 @@ cursor ``chunk`` at the reference's boundaries, and ``resume_from``
 continues the SAME batch from the saved cursor, bit for bit the run it
 was cut from. ``sync_every > 1`` (chunks as one device program) is not
 ported yet: it becomes a CUDA-graph capture with ROADMAP.md, queue A
-item 13, and raises ``NotImplementedError``.
+item 13b, and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

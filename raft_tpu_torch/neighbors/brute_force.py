@@ -19,10 +19,10 @@
 database rows sharded over the ranks, queries replicated, one
 all-gather of the ranks' candidates and a merge.
 
-Not ported yet: ``knn``'s work-budget admission (queue A item 13; the
+Not ported yet: ``knn``'s work-budget admission (queue A item 13b; the
 budget of ``runtime.limits`` is ported, but ``knn`` does not consult it,
 so its dispatch is the reference's with no budget active) and the
-dispatch trace event (obs, queue A item 13).
+dispatch trace event (obs, queue A item 13b).
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""The process-wide event ring and the JSONL sink (the part of
-``raft_tpu/obs/export.py`` the comms layer needs; the snapshot and the
-Prometheus and chrome-trace renderers are ROADMAP queue A item 13).
+"""Export surface (counterpart of ``raft_tpu/obs/export.py``): the
+process-wide event ring, the JSONL sink, :func:`snapshot`, the
+Prometheus text exposition (:func:`render_prometheus`) and the
+chrome://tracing / Perfetto exporter (:func:`render_chrome_trace`).
 
 :func:`raft_tpu_torch.core.trace.record_event` feeds the ring: one
 record per event with ``name``/``range``/``range_stack``/``t`` and the
@@ -15,16 +16,19 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import threading
 import time
 from typing import Deque, List, Optional
 
+from raft_tpu_torch.obs import metrics as _metrics
 from raft_tpu_torch.obs import tracectx as _tracectx
 
 __all__ = [
     "emit_event", "events", "clear_events",
     "JsonlSink", "get_sink", "set_sink",
+    "snapshot", "render_prometheus", "render_chrome_trace",
 ]
 
 
@@ -176,3 +180,143 @@ def _sink_span(rec: dict) -> None:
     sink.write(out)
 
 
+# ---------------------------------------------------------------------------
+# snapshot + Prometheus text exposition
+# ---------------------------------------------------------------------------
+
+def snapshot(registry: Optional[_metrics.MetricsRegistry] = None) -> dict:
+    """One JSON-able dict of everything: enabled flag, every metric
+    family/series, span/event ring occupancy *and loss counters* (a
+    truncated flight bundle must be distinguishable from a quiet
+    system), and the performance-attribution section
+    (:mod:`raft_tpu_torch.obs.perf`)."""
+    from raft_tpu_torch.obs import perf as _perf
+    from raft_tpu_torch.obs.spans import ring_stats as _ring_stats
+    reg = registry or _metrics.get_registry()
+    st = _ring_stats()
+    with _events_lock:
+        ev_retained, ev_overwritten = len(_events), _events_overwritten
+    return {
+        "enabled": _metrics.enabled(),
+        "metrics": reg.snapshot(),
+        "spans_retained": st["retained"],
+        "spans_dropped": st["dropped"],
+        "spans_sampled_out": st["sampled_out"],
+        "events_retained": ev_retained,
+        "events_overwritten": ev_overwritten,
+        "perf": _perf.perf_snapshot(),
+    }
+
+
+def _esc_label(v: str) -> str:
+    return v.replace("\\", r"\\").replace("\n", r"\n").replace('"', r'\"')
+
+
+def _fmt_labels(names, values) -> str:
+    if not names:
+        return ""
+    inner = ",".join(f'{k}="{_esc_label(str(v))}"'
+                     for k, v in zip(names, values))
+    return "{" + inner + "}"
+
+
+def _fmt_value(v: float) -> str:
+    f = float(v)
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
+
+def render_prometheus(
+        registry: Optional[_metrics.MetricsRegistry] = None) -> str:
+    """Prometheus text exposition (version 0.0.4) of the registry:
+    ``# HELP`` / ``# TYPE`` headers, one line per series, histograms as
+    cumulative ``_bucket{le=...}`` plus ``_sum`` / ``_count``."""
+    reg = registry or _metrics.get_registry()
+    out = io.StringIO()
+    for name, fam in sorted(reg.families().items()):
+        if fam.help:
+            out.write(f"# HELP {name} {fam.help}\n")
+        out.write(f"# TYPE {name} {fam.kind}\n")
+        with fam._lock:
+            children = list(fam._children.values())
+        for child in sorted(children, key=lambda c: c.labels):
+            lbl = _fmt_labels(fam.labelnames, child.labels)
+            if fam.kind != "histogram":
+                out.write(f"{name}{lbl} {_fmt_value(child.value)}\n")
+                continue
+            cum = 0
+            for bound, n in zip(list(fam.buckets) + ["+Inf"],
+                                child.bucket_counts):
+                cum += n
+                blbl = _fmt_labels(
+                    list(fam.labelnames) + ["le"],
+                    list(child.labels) + [bound])
+                out.write(f"{name}_bucket{blbl} {cum}\n")
+            out.write(f"{name}_sum{lbl} {_fmt_value(child.sum)}\n")
+            out.write(f"{name}_count{lbl} {child.count}\n")
+    return out.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# chrome://tracing / Perfetto exporter
+# ---------------------------------------------------------------------------
+
+_CHROME_TRACE_FIELDS = ("trace_id", "request_id", "tenant")
+
+
+def render_chrome_trace(path: Optional[str] = None, *,
+                        spans: Optional[List[dict]] = None) -> dict:
+    """Render the span ring as a Perfetto / ``chrome://tracing`` JSON
+    document.
+
+    Every span record becomes a ``"ph": "X"`` complete duration event:
+    host monotonic seconds scaled to the microseconds the format wants,
+    keyed on the recorded thread id so nesting within a thread renders
+    as the stack it was. ``*.chunk`` spans (the compiled driver's chunk
+    launches) additionally emit an async ``"b"``/``"e"`` slice pair,
+    which Perfetto draws as a separate device lane. Trace-context
+    fields and span attrs land in ``args``.
+
+    ``spans`` overrides the ring (e.g. a flight bundle's span list);
+    ``path`` additionally writes the JSON document to a file. Returns
+    the document either way."""
+    import os as _os
+
+    recs = spans if spans is not None else _list_all_spans()
+    pid = _os.getpid()
+    out: List[dict] = []
+    async_id = 0
+    for rec in recs:
+        args = dict(rec.get("attrs") or {})
+        if rec.get("parent"):
+            args["parent"] = rec["parent"]
+        for f in _CHROME_TRACE_FIELDS:
+            if rec.get(f):
+                args[f] = rec[f]
+        ts_us = float(rec["t"]) * 1e6
+        dur_us = max(0.0, float(rec["duration"])) * 1e6
+        out.append({
+            "name": rec["name"], "ph": "X", "cat": "host",
+            "ts": ts_us, "dur": dur_us, "pid": pid,
+            "tid": rec.get("thread") or 0,
+            "args": _json_safe(args),
+        })
+        if rec["name"].endswith(".chunk"):
+            # device lane: one async slice per chunk
+            async_id += 1
+            base = {"name": rec["name"], "cat": "device",
+                    "id": async_id, "pid": pid, "tid": 0,
+                    "args": _json_safe(args)}
+            out.append({**base, "ph": "b", "ts": ts_us})
+            out.append({**base, "ph": "e", "ts": ts_us + dur_us})
+    doc = {"traceEvents": out, "displayTimeUnit": "ms"}
+    if path is not None:
+        with open(path, "w", encoding="utf-8") as fh:
+            json.dump(doc, fh, separators=(",", ":"))
+    return doc
+
+
+def _list_all_spans() -> List[dict]:
+    from raft_tpu_torch.obs.spans import spans as _list_spans
+    return _list_spans()

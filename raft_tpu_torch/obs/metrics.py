@@ -22,7 +22,8 @@ label (say, a peer address) degrades metrics, never memory.
 
 Histogram buckets are fixed and log-spaced (:func:`log_buckets`); the
 default span (1 µs … 1000 s at two buckets per decade) covers collective
-latencies, compile times, and checkpoint writes.
+latencies, compile times, and checkpoint writes. Convergence residuals
+use the wider :data:`RESIDUAL_BUCKETS` (1e-14 … 1e2).
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ from raft_tpu_torch.core import env as _env_mod
 __all__ = [
     "enabled", "set_enabled", "MetricsRegistry",
     "get_registry", "set_registry",
-    "log_buckets", "DEFAULT_BUCKETS",
-    "inc", "set_gauge", "observe",
+    "log_buckets", "DEFAULT_BUCKETS", "RESIDUAL_BUCKETS",
+    "inc", "set_gauge", "observe", "record_convergence",
 ]
 
 
@@ -86,6 +87,9 @@ def log_buckets(lo: float, hi: float, per_decade: int = 2
 
 #: 1 µs … 1000 s — latencies, compile seconds, checkpoint writes.
 DEFAULT_BUCKETS = log_buckets(1e-6, 1e3, per_decade=2)
+
+#: 1e-14 … 100 — convergence residuals (relative measures near eps64).
+RESIDUAL_BUCKETS = log_buckets(1e-14, 1e2, per_decade=1)
 
 _OVERFLOW = "<overflow>"
 
@@ -376,3 +380,27 @@ def observe(name: str, value: float, help: str = "",
         return
     _default_registry.histogram(
         name, help, tuple(labels), buckets).labels(**labels).observe(value)
+
+
+def record_convergence(op: str, report) -> None:
+    """Feed a :class:`~raft_tpu_torch.core.guards.ConvergenceReport` into
+    the solver metric families: the one hook every iterative solver's
+    epilogue calls (k-means, Lanczos)."""
+    if not _enabled or report is None:
+        return
+    inc("solver_iterations_total", max(0, int(report.n_iter)),
+        help="iterations spent by iterative solvers", solver=op)
+    inc("solver_runs_total", 1,
+        help="solver invocations by convergence outcome", solver=op,
+        converged=str(bool(report.converged)).lower())
+    observe("solver_residual",
+            float(report.residual),
+            help="final convergence residual per solver run",
+            buckets=RESIDUAL_BUCKETS, solver=op)
+    if getattr(report, "breakdowns", 0):
+        inc("solver_breakdowns_total", int(report.breakdowns),
+            help="internally recovered solver breakdown events",
+            solver=op)
+    if getattr(report, "escalated", False):
+        inc("solver_escalations_total", 1,
+            help="solver runs that used precision escalation", solver=op)

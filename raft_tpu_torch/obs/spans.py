@@ -45,8 +45,8 @@ from raft_tpu_torch.core import env as _env_mod
 from raft_tpu_torch.obs import metrics as _metrics
 from raft_tpu_torch.obs import tracectx as _tracectx
 
-__all__ = ["span", "spans", "clear_spans", "set_sample_rate",
-           "set_retention", "ring_stats"]
+__all__ = ["span", "spans", "clear_spans", "record_span",
+           "set_sample_rate", "set_retention", "ring_stats"]
 
 _lock = threading.Lock()
 _counts: Dict[str, int] = {}      # per-name emission counter (sampling)
@@ -164,6 +164,40 @@ def _record(sp: _Span) -> None:
     # sink write happens outside the span lock (the sink has its own)
     from raft_tpu_torch.obs import export
     export._sink_span(rec)
+
+
+def record_span(name: str, *, t_start: float, duration: float,
+                parent: Optional[str] = None,
+                thread: Optional[int] = None,
+                ctx: Optional["_tracectx.TraceContext"] = None,
+                **attrs) -> Optional[dict]:
+    """Record a manufactured span: one whose lifetime was measured
+    outside a ``with`` block (a profiler session, per-request slices
+    derived after a batch launch completes).
+
+    No-op (returns None) when metrics are off. Not subject to
+    counter-stride sampling: manufactured spans are explicit, their
+    caller already decided they matter. ``ctx`` defaults to the calling
+    thread's active :class:`TraceContext`."""
+    if not _metrics.enabled():
+        return None
+    if ctx is None and _tracectx.tracing_enabled():
+        ctx = _tracectx.current_context()
+    rec = {"name": name, "t": float(t_start),
+           "duration": float(duration), "parent": parent,
+           "thread": thread if thread is not None
+           else threading.get_ident(),
+           "attrs": dict(attrs)}
+    if ctx is not None:
+        rec.update(ctx.attrs())
+    global _dropped
+    with _lock:
+        if len(_spans) == _spans.maxlen:
+            _dropped += 1
+        _spans.append(rec)
+    from raft_tpu_torch.obs import export
+    export._sink_span(rec)
+    return rec
 
 
 def span(name: str, **attrs):

@@ -1,9 +1,7 @@
 """Workload limits of the port: deadlines, work budgets with admission
 control, circuit breakers and rate budgets (counterpart of
-``raft_tpu/runtime/limits.py``; its time estimates ``estimate_seconds``,
-``estimate_flops_bytes`` and ``check_chunk_budget``, and the budget's
-wiring into ``knn``, ``pairwise_distance`` and ``gemm``, are ROADMAP
-queue A item 13).
+``raft_tpu/runtime/limits.py``; the budget's wiring into ``knn``,
+``pairwise_distance`` and ``gemm`` is ROADMAP queue A item 13b).
 
 ``Deadline`` / :func:`deadline_scope`
     An absolute-time budget carried in a thread-local scope. Host-driver
@@ -26,6 +24,12 @@ queue A item 13).
     protecting callers from retry storms against an op that keeps
     missing its deadline or budget.
 
+:func:`estimate_seconds` / :func:`check_chunk_budget`
+    A per-step seconds model (``max(flops / peak, bytes / bandwidth)``
+    from :mod:`raft_tpu_torch.core.hw`'s sustained figures) and the
+    pre-launch admission of a compiled chunk against the deadline's
+    remaining slack (:mod:`raft_tpu_torch.runtime.compiled_driver`).
+
 ``RateBudget``
     A sliding-window spend budget for secondary work (retries, hedges)
     that must never amplify an overload.
@@ -44,13 +48,15 @@ from typing import Dict, Optional
 
 from raft_tpu_torch import obs
 from raft_tpu_torch.core import env as _env_mod
+from raft_tpu_torch.core import hw as _hw
 
 __all__ = [
     "DeadlineExceededError", "RejectedError",
     "Deadline", "deadline_scope", "current_deadline", "remaining",
     "check_deadline", "sleep_within_deadline",
     "WorkBudget", "budget_scope", "active_budget", "set_default_budget",
-    "parse_bytes", "estimate_bytes", "admit", "reject", "record_degraded",
+    "parse_bytes", "estimate_bytes", "estimate_flops_bytes",
+    "estimate_seconds", "check_chunk_budget", "admit", "reject", "record_degraded",
     "CircuitBreaker", "get_breaker", "reset_breakers",
     "RateBudget",
 ]
@@ -453,6 +459,188 @@ def estimate_bytes(op: str, **dims) -> int:
             f"no footprint estimator for op {op!r}; known: "
             f"{sorted(_ESTIMATORS)}") from None
     return int(fn(**dims))
+
+
+# Order-of-magnitude sustained throughput by backend: FLOP/s and device
+# memory bytes/s. Coarse on purpose: they seed a fast-fail decision (can
+# this chunk possibly fit the remaining deadline slack?), never a
+# measurement; run_chunked replaces the estimate with measured per-chunk
+# wall time after the first launch. The tables live in core/hw.py.
+_PEAK_FLOP_S = _hw.SUSTAINED_FLOP_S
+_PEAK_BYTES_S = _hw.SUSTAINED_BYTES_S
+
+
+def _sec_lloyd_step(*, m, k, n_clusters, itemsize=4):
+    # fused assignment+update: one [m,k]·[k,K] distance contraction plus
+    # the [K,m]·[m,k] update, both passes over X
+    flops = 4.0 * m * k * n_clusters
+    bytes_ = (m * k + 2.0 * n_clusters * k) * itemsize
+    return flops, bytes_
+
+
+def _sec_lanczos_restart(*, n, ncv, nnz, k=0, itemsize=4):
+    # one thick restart: up to ncv extension steps of SpMV (2·nnz) plus
+    # two Gram-Schmidt passes (4 matvecs against the [ncv, n] basis),
+    # the Ritz back-transform/QR, and the ncv³ projected eigenproblem
+    flops = ncv * (2.0 * nnz + 8.0 * n * ncv) + 4.0 * n * ncv * max(k, 1) \
+        + 30.0 * ncv ** 3
+    bytes_ = ncv * (nnz * (itemsize + 4) + n * ncv * itemsize)
+    return flops, bytes_
+
+
+def _sec_pairwise(*, m, n, k, itemsize):
+    # one m×n×k contraction plus the O(m·n) metric epilogue
+    flops = 2.0 * m * n * k + 3.0 * m * n
+    return flops, _est_pairwise(m=m, n=n, k=k, itemsize=itemsize)
+
+
+def _sec_knn(*, n_queries, n_db, n_dims, k, itemsize,
+             dist_itemsize=4):
+    # the full q×db distance block plus the top-k selection
+    flops = 2.0 * n_queries * n_db * n_dims \
+        + 4.0 * n_queries * n_db
+    return flops, _est_knn(n_queries=n_queries, n_db=n_db,
+                           n_dims=n_dims, k=k, itemsize=itemsize,
+                           dist_itemsize=dist_itemsize)
+
+
+def _sec_ivf_search(*, n_queries, probe_rows, n_dims, k, itemsize,
+                    packed_rows=0, dist_itemsize=4):
+    # fine distances over the gathered probe tile plus its top-k
+    flops = 2.0 * n_queries * probe_rows * n_dims \
+        + 4.0 * n_queries * probe_rows
+    return flops, _est_ivf_search(
+        n_queries=n_queries, probe_rows=probe_rows, n_dims=n_dims,
+        k=k, itemsize=itemsize, packed_rows=packed_rows,
+        dist_itemsize=dist_itemsize)
+
+
+def _sec_ivf_mnmg_search(*, n_queries, probe_rows, n_dims, k, n_ranks,
+                         itemsize, packed_rows=0, dist_itemsize=4):
+    # per-device cost: the local probe scan plus the replicated
+    # [q, n_ranks*k] merge-pool top-k
+    flops = 2.0 * n_queries * probe_rows * n_dims \
+        + 4.0 * n_queries * (probe_rows + n_ranks * k)
+    return flops, _est_ivf_mnmg_search(
+        n_queries=n_queries, probe_rows=probe_rows, n_dims=n_dims,
+        k=k, n_ranks=n_ranks, itemsize=itemsize,
+        packed_rows=packed_rows, dist_itemsize=dist_itemsize)
+
+
+def _sec_ivf_pq_search(*, n_queries, nprobe, probe_rows, n_dims, k, m,
+                       n_codes, itemsize=4, refine=0, packed_rows=0,
+                       dist_itemsize=4):
+    # the LUT build (one batched residual×codebook contraction), the
+    # LUT sum (one code and one LUT entry per candidate and subspace),
+    # the top-k, and an armed refine's exact pass over the raw rows
+    rr = max(k, refine)
+    flops = (2.0 * n_queries * nprobe * n_codes * n_dims
+             + 2.0 * n_queries * probe_rows * m
+             + 4.0 * n_queries * probe_rows)
+    if refine:
+        flops += 2.0 * n_queries * rr * n_dims
+    return flops, _est_ivf_pq_search(
+        n_queries=n_queries, nprobe=nprobe, probe_rows=probe_rows,
+        n_dims=n_dims, k=k, m=m, n_codes=n_codes, itemsize=itemsize,
+        refine=refine, packed_rows=packed_rows,
+        dist_itemsize=dist_itemsize)
+
+
+def _sec_streaming_compact(*, packed_rows, n_dims, itemsize,
+                           id_itemsize=4):
+    # bandwidth-bound: the repack streams every packed byte once out and
+    # once in; the coarse relabel contraction is the only FLOP term
+    flops = 2.0 * packed_rows * n_dims
+    return flops, _est_streaming_compact(
+        packed_rows=packed_rows, n_dims=n_dims, itemsize=itemsize,
+        id_itemsize=id_itemsize)
+
+
+def _sec_gemm(*, m, n, k, itemsize, out_itemsize=None):
+    return 2.0 * m * n * k, _est_gemm(m=m, n=n, k=k,
+                                      itemsize=itemsize,
+                                      out_itemsize=out_itemsize)
+
+
+def _sec_spmv(*, n_rows, n_cols, nnz, itemsize, index_itemsize=4):
+    return 2.0 * nnz, _est_spmv(n_rows=n_rows, n_cols=n_cols,
+                                nnz=nnz, itemsize=itemsize,
+                                index_itemsize=index_itemsize)
+
+
+_SECONDS_ESTIMATORS = {
+    "cluster.lloyd_step": _sec_lloyd_step,
+    "sparse.lanczos_restart": _sec_lanczos_restart,
+    "distance.pairwise_distance": _sec_pairwise,
+    "neighbors.brute_force_knn": _sec_knn,
+    "neighbors.ivf_search": _sec_ivf_search,
+    "neighbors.ivf_mnmg_search": _sec_ivf_mnmg_search,
+    "neighbors.ivf_pq_search": _sec_ivf_pq_search,
+    "neighbors.streaming_compact": _sec_streaming_compact,
+    "linalg.gemm": _sec_gemm,
+    "sparse.spmv": _sec_spmv,
+}
+
+
+def _seconds_estimator(op: str):
+    try:
+        return _SECONDS_ESTIMATORS[op]
+    except KeyError:
+        raise ValueError(
+            f"no seconds estimator for op {op!r}; known: "
+            f"{sorted(_SECONDS_ESTIMATORS)}") from None
+
+
+def estimate_flops_bytes(op: str, **dims) -> tuple:
+    """The per-step ``(flops, bytes)`` pair behind
+    :func:`estimate_seconds`, so the compiled-driver call sites hand the
+    same model costs to the perf-attribution layer
+    (``obs.profile_executable`` / ``record_launch``) that seed their
+    chunk admission. Same op vocabulary as :func:`estimate_seconds`."""
+    flops, bytes_ = _seconds_estimator(op)(**dims)
+    return float(flops), float(bytes_)
+
+
+def estimate_seconds(op: str, *, backend: Optional[str] = None,
+                     **dims) -> float:
+    """Per-step wall-clock estimate for a compiled chunk's admission
+    check, the seconds twin of :func:`estimate_bytes`: the op's inner
+    step is costed as ``max(flops/peak_flops, bytes/peak_bandwidth)``
+    on ``backend`` (``"gpu"`` or ``"cpu"``; default ``"gpu"`` when CUDA
+    is up, else ``"cpu"``) from static shapes only. Known ops:
+    ``cluster.lloyd_step(m, k, n_clusters[, itemsize])``,
+    ``sparse.lanczos_restart(n, ncv, nnz[, k, itemsize])``, and the ops
+    of :func:`estimate_bytes`."""
+    fn = _seconds_estimator(op)
+    if backend is None:
+        backend = _hw.backend_of()
+    flops, bytes_ = fn(**dims)
+    return max(flops / _PEAK_FLOP_S.get(backend, 5e10),
+               bytes_ / _PEAK_BYTES_S.get(backend, 2e10))
+
+
+def check_chunk_budget(op: str, est_seconds: float) -> None:
+    """Pre-launch admission for a compiled chunk: raise
+    :class:`DeadlineExceededError` when the chunk's cost estimate
+    exceeds the binding deadline's remaining slack, failing BEFORE the
+    launch instead of discovering the expiry a whole chunk later. No-op
+    without an active deadline scope. Counts into the same breaker and
+    ``limits_deadline_exceeded_total`` series as an observed expiry."""
+    d = current_deadline()
+    if d is None:
+        return
+    d._ops.add(op)
+    rem = d.remaining()
+    if est_seconds > rem:
+        get_breaker(op).record_failure()
+        obs.inc("limits_deadline_exceeded_total", 1, op=op)
+        exc = DeadlineExceededError(
+            f"{op}: compiled chunk estimated at {est_seconds:.3f}s "
+            f"exceeds the {max(rem, 0.0):.3f}s left on the "
+            f"{d.budget_s:g}s deadline — failing before launch",
+            op=op, budget_s=d.budget_s)
+        obs.record_failure(exc)
+        raise exc
 
 
 def admit(op: str, estimate: int, *,

@@ -18,7 +18,7 @@ products (torch gathers), as in the reference. ``sddmm`` and
 precision tier in effect (no TF32).
 
 Not ported yet: guard modes other than ``off`` and the
-``runtime.limits`` admission (ROADMAP.md, queue A item 13).
+``runtime.limits`` admission (ROADMAP.md, queue A item 13b).
 """
 
 from __future__ import annotations

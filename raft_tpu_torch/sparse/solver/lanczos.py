@@ -29,8 +29,8 @@ thick restart orthonormalizes the Ritz vectors by CholeskyQR2 across the
 ranks. The host restart loop is the single-device solver's, shared.
 
 Not ported yet: ``sync_every > 1`` (the reference's compiled restart
-chunks; a CUDA-graph capture with queue A item 13) and the obs events
-(item 13).
+chunks; a CUDA-graph capture with queue A item 13b) and the obs events
+(item 13b).
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ module. It reads no ``RAFT_TPU_MST`` and has no gate: a CUDA CSR goes to
 the kernel, a CPU CSR to the kernel's plain version. Edge filtering (a
 mask of edges still crossing, since the kernel walks CSR rows) is a later
 performance lever. Deadlines (``runtime.limits``) are not ported
-(ROADMAP.md queue A item 13).
+(ROADMAP.md queue A item 13b).
 """
 
 from __future__ import annotations

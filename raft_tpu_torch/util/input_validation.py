@@ -105,25 +105,25 @@ def expect_finite(arr: torch.Tensor, name: str = "array",
 
 
 def expect_one_sync(sync_every: Optional[int], op: str) -> None:
-    """``sync_every`` validated; above 1 (steps chunked into one device
-    program, the reference's compiled driver) raises
-    ``NotImplementedError``: it becomes a CUDA-graph capture with the
-    runtime port (ROADMAP.md, queue A item 13)."""
+    """``sync_every`` validated for the solvers not yet chunked
+    (``kmeans_fit_mnmg``, Lanczos, ``pca_partial_fit``): ``None`` is 1
+    (their host-driven path on the card too, where
+    :func:`resolve_sync_every`'s default is 16), and an explicit value
+    above 1 raises ``NotImplementedError``: their chunks on the compiled
+    driver are ROADMAP.md queue A item 13b."""
+    if sync_every is None:
+        return
     if resolve_sync_every(sync_every) > 1:
         raise NotImplementedError(
-            f"{op}: sync_every > 1 (steps chunked into one device program) "
-            "is not ported yet; it becomes a CUDA-graph capture with the "
-            "runtime port (ROADMAP.md, queue A item 13). sync_every=1 is "
-            "the same algorithm.")
+            f"{op}: sync_every > 1 (steps chunked into one CUDA graph) is "
+            "not ported yet for this solver (ROADMAP.md, queue A item "
+            "13b). sync_every=1 is the same algorithm.")
 
 
-def resolve_sync_every(sync_every: Optional[int]) -> int:
-    """``sync_every`` validated as in the reference package's
-    ``runtime.compiled_driver.resolve_sync_every``; ``None`` is 1 (the
-    reference's cost model has no counterpart yet)."""
-    if sync_every is None:
-        return 1
-    n = int(sync_every)
-    if n < 1:
-        raise ValueError(f"sync_every must be >= 1, got {sync_every}")
-    return n
+def resolve_sync_every(sync_every: Optional[int], *, device=None) -> int:
+    """``sync_every`` validated, with ``None`` resolved by
+    :func:`raft_tpu_torch.runtime.compiled_driver.resolve_sync_every`'s
+    cost model (1 on the CPU, 16 on a CUDA card)."""
+    from raft_tpu_torch.runtime import compiled_driver
+
+    return compiled_driver.resolve_sync_every(sync_every, device=device)

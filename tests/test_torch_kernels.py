@@ -182,6 +182,34 @@ def test_lloyd_many_row_tiles_per_block(card, tier):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tier", TIERS)
+def test_lloyd_gate_on_card(card, tier, monkeypatch):
+    """The Lloyd pass under a gate (a masked step of a captured chunk):
+    a gate of 1 gives the ungated pass's bits, a gate of 0 launches the
+    kernel (it counts) and writes none of its outputs."""
+    m, n, k = 3001, 129, 50
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(m, k, generator=g, device=card)
+    y = torch.randn(n, k, generator=g, device=card)
+    xs, ys = tc._side(x, tier), tc._side(y, tier)
+    want = tc._fused_lloyd(tier, xs, ys, m, n, k)
+    on = torch.ones((), dtype=torch.int32, device=card)
+    with kernels.gated(on):
+        got = tc._fused_lloyd(tier, xs, ys, m, n, k)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, **kw: empty(*a, **kw).fill_(7))
+    with kernels.gated(torch.zeros((), dtype=torch.int32, device=card)):
+        off = _counted("fused_lloyd", lambda: tc._fused_lloyd(
+            tier, xs, ys, m, n, k))
+    monkeypatch.undo()
+    for a in off:
+        assert bool((a == 7).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", TIERS)
 @pytest.mark.parametrize("m,n,k", [(20000, 8192, 128), (3001, 129, 50),
                                    (129, 1, 8), (1, 300, 45)])
 def test_lloyd_shapes_on_card(card, tier, m, n, k):
@@ -1226,3 +1254,57 @@ def test_take_rows_and_ivf_probe_on_card(card, tier):
             for a, b in zip(lib.search(None, ext, q.to(card), 10, 4),
                             lib.search(None, reb, q.to(card), 10, 4)):
                 assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["high", "highest", "default"])
+def test_captured_chunks_are_the_host_loop_on_card(card, tier):
+    """kmeans_fit's captured chunks and kmeans_partial_fit's, bitwise the
+    host loop, with the same launch counts (replays counted) and one
+    host read a chunk; a tol that converges mid chunk keeps n_iter."""
+    from raft_tpu_torch.cluster import kmeans as tk
+    from raft_tpu_torch.runtime import compiled_driver as cd
+    from raft_tpu_torch.util import precision as tprec
+
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn(3000, 24, generator=g, device=card)
+    c0 = x[:40].clone()
+
+    def fit(s, tol):
+        p = tk.KMeansParams(n_clusters=40, max_iter=23, tol=tol,
+                            init=tk.KMeansInit.ARRAY)
+        with tprec.scope(tier):
+            return tk.kmeans_fit(None, p, x, c0, sync_every=s)
+
+    for tol in (-1.0, 1e-3):
+        out = {}
+        for s in (1, 8):
+            kernels.reset_launch_counts()
+            st = cd.graph_stats()
+            out[s] = (fit(s, tol), kernels.launch_counts(),
+                      {k: v - st[k] for k, v in cd.graph_stats().items()})
+        (c1, _, l1, n1), launches1, _ = out[1]
+        (c8, _, l8, n8), launches8, st8 = out[8]
+        assert torch.equal(c1, c8) and torch.equal(l1, l8) and n1 == n8
+        # the first chunk launches its 8 steps one by one; a fit that
+        # needs a second chunk captures once and replays the rest
+        assert st8["host_reads"] == -(-n8 // 8)
+        assert st8["captures"] == (n8 > 8)
+        assert st8["replays"] == st8["steps_launched"] - 8
+        # every step a replay launches counts, the masked ones too
+        assert launches1["fused_lloyd"] == n1
+        assert launches8["fused_lloyd"] == st8["steps_launched"] >= n8
+        assert dict(launches8, fused_lloyd=0) == dict(launches1,
+                                                      fused_lloyd=0)
+        if tol < 0:
+            assert n8 == 23 and launches8 == launches1
+    # by default a step this small (far below a launch's host overhead)
+    # keeps the host loop: no chunk, no host read of the driver
+    st = cd.graph_stats()
+    fit(None, -1.0)
+    assert cd.graph_stats() == st
+    with tprec.scope(tier):
+        a = tk.kmeans_partial_fit(None, c0, x, chunk_rows=64, sync_every=1)
+        b = tk.kmeans_partial_fit(None, c0, x, chunk_rows=64, sync_every=5)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert float(a[1].sum()) == 3000
