@@ -178,6 +178,28 @@ just after:
   within its 5% budget; every future of a killed replica resolved; the
   recovery to the SLO finite; ``fused_topk`` and the radix kernels
   launched;
+- the streaming index (the ``streaming`` line, after ``serve_fleet``,
+  at the ivf phase's 2^20 x 64 with 1024 lists, 'high', journaled under
+  ``chiprun_out/streaming``, removed after): ``stream_build`` and a
+  provisioning compaction; fitting inserts of 4096 rows next to their
+  centroids (every snapshot shape kept) and one of 65,536 that
+  overflows into an epoch; 10% of the ids deleted; 256 queries at
+  nprobe 16, k = 10 and k = 64 (the radix route), bitwise the search of
+  a rebuild of the live rows on the same centroids, and the full probe
+  bitwise ``knn`` over them; the compaction (``content_crc()`` and the
+  bits kept); shifted rows until the drift gauge fires, and the refit
+  (centroids moved, every id kept, its chunk checkpoints written);
+  recovery on the card (the CRC and the search bits) and on the host
+  (the CRC); the scrubber's clean pass, a corrupted epoch file
+  quarantined and written again from memory, one byte of the packed
+  rows flipped on the card and repaired from the recovered twin; an
+  ``IngestController`` over the k = 10 and k = 64 services (buckets
+  8..64): a same-shape swap served at once, then ``streaming_loop``
+  once an op, every response the seed chose (at least 500 in all)
+  bitwise an eager search of a snapshot of its window, the recall
+  floor, no build, export or capture on the query path after
+  ``warm()``; ``fused_argmin``, ``fused_lloyd``, ``fused_topk`` and the
+  radix kernels launched;
 - AOT artifacts (the ``aot`` line): ``lloyd_step`` at config 3's shape
   and ``radix_select_k`` at the select shape exported, saved with the
   sha256 sidecar, loaded and run in a fresh ``python`` process bitwise
@@ -8475,6 +8497,512 @@ def serve_fleet_phase(res, dev, db, ivf_index):
     return {n: c for n, c in launches.items() if c}
 
 
+# ---------------------------------------------------------------------------
+# the streaming phase: the streaming IVF-Flat index, its journal, compactor,
+# drift refit and scrubber, and streaming ingest behind the executor, at the
+# ivf phase's scale
+# ---------------------------------------------------------------------------
+
+STREAM_SLACK = 64                 # free tail slots a list after a repack
+STREAM_BATCH, STREAM_FITS = 4096, 4   # fitting inserts: rows, batches
+STREAM_OVERFLOW = 65536           # the insert that overflows into an epoch
+STREAM_DELETE = 0.1               # share of the ids deleted
+STREAM_NOISE = 0.1                # a fitting row's offset from its centroid
+STREAM_SHIFT = 3.0                # the drift rows' shift in every coordinate
+STREAM_DRIFT_BATCHES = 8          # most shifted batches before the trigger
+STREAM_MAX_BATCH = 64             # the ingest executor's buckets: 8 .. 64
+STREAM_SERVICES = ((10, 16), (IVF_RADIX_K, 16))
+STREAM_LOOP_S, STREAM_CLIENTS = 10.0, 8
+# an ingest batch a second: each shape-changing swap re-warms 14 programs
+# (about 5 s, the queries' latency up to 1.5 s meanwhile), so faster
+# ingest leaves a loop little else
+STREAM_INGEST_ROWS, STREAM_INGEST_S = 32, 1.0
+STREAM_CHECKED, STREAM_CHECK_RATE = 500, 0.6   # over both loops
+STREAM_RECALL = (0.5, 0.85)       # tests/test_streaming.py:616-617
+STREAM_TRAFFIC_ROWS, STREAM_RECALL_Q = 4096, 256
+
+
+class StreamKept:
+    """``loadgen.streaming_loop``'s controller (the ingest controller's
+    surface, duck-typed) that keeps, for each query whose ordinal the seed
+    chose before the run, its block, its response and every snapshot it
+    may have been served from (from the one its service serves at submit,
+    which may trail the stream's, to the last published before its
+    result), and for every query its submit and result instants."""
+
+    def __init__(self, ctl, chosen):
+        import threading
+
+        self.ctl, self.chosen = ctl, chosen
+        self.executor, self.stream = ctl.executor, ctl.stream
+        self.compactor = ctl.compactor
+        self.lock = threading.Lock()
+        self.n, self.kept, self.spans = 0, [], []
+
+    @property
+    def swaps(self):
+        return self.ctl.swaps
+
+    @property
+    def refreshes(self):
+        return self.ctl.refreshes
+
+    def insert(self, rows, labels=None):
+        return self.ctl.insert(rows, labels)
+
+    def delete(self, ids):
+        return self.ctl.delete(ids)
+
+    def submit(self, op, queries, **kw):
+        with self.lock:
+            i, self.n = self.n, self.n + 1
+        served = self.executor.services[op]._version
+        early = self.stream.recent_snapshots()
+        t0 = time.monotonic()
+        fut = self.ctl.submit(op, queries, **kw)
+        kept = self
+
+        class Future:
+            def result(self, timeout=None):
+                out = fut.result(timeout=timeout)
+                t1 = time.monotonic()
+                with kept.lock:
+                    kept.spans.append((t0, t1))
+                    if i in kept.chosen:
+                        snaps = {s.version: s for s in
+                                 early + kept.stream.recent_snapshots()
+                                 if s.version >= served}
+                        kept.kept.append((op, queries, out, [
+                            snaps[v] for v in sorted(snaps)]))
+                return out
+        return Future()
+
+
+def stream_timed(kernels, launches, fn):
+    """``fn()`` synchronized: its value, its seconds, and its launches
+    added into ``launches``."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    after = kernels.launch_counts()
+    for name in after:
+        if after[name] != before[name]:
+            launches[name] = launches.get(name, 0) + after[name] - before[name]
+    return out, s
+
+
+def stream_shapes(snap):
+    f = snap.flat
+    return [tuple(t.shape) for t in (f.centroids, f.packed_db, f.packed_ids,
+                                     f.starts, f.sizes, snap.tomb_words)]
+
+
+def stream_near(rng, cents, rows, shift=0.0):
+    """``rows`` rows next to the given centroids (host f32)."""
+    import numpy as np
+
+    lab = rng.integers(0, cents.shape[0], rows)
+    return (cents[lab] + shift + STREAM_NOISE * rng.standard_normal(
+        (rows, cents.shape[1]))).astype(np.float32)
+
+
+def stream_recall(knn, res, idx, q, k=10, nprobe=16, chunk=64):
+    """recall@k of ``idx.search`` at ``nprobe`` against ``knn`` over the
+    live rows: the mean over the rows of ``q`` and the least mean over
+    4-row blocks (the loop's requests), in ``chunk``-row searches."""
+    import torch
+
+    rows, ids = idx._live_device()
+    got = torch.cat([idx.search(q[i:i + chunk], k, nprobe)[1]
+                     for i in range(0, len(q), chunk)]).long()
+    truth = ids[torch.cat([knn(res, rows, q[i:i + chunk], k)[1]
+                           for i in range(0, len(q), chunk)]).long()]
+    hit = (got[:, :, None] == truth[:, None, :]).any(-1).float().mean(1)
+    return {"mean": float(hit.mean()),
+            "min_4_rows": float(hit.reshape(-1, 4).mean(1).min())}
+
+
+def stream_pct(lat):
+    import numpy as np
+
+    if not lat:
+        return None
+    a = np.asarray(lat)
+    return {"n": len(lat), "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99))}
+
+
+def stream_mutations(st, ivf_flat, knn, res, idx, q, rng, kernels,
+                     launches, out):
+    """Fitting inserts, the overflowing insert, the deletes and the
+    searches against the rebuild and against ``knn``."""
+    import numpy as np
+
+    cents = idx.flat.centroids.cpu().numpy()
+    shapes, epoch = stream_shapes(idx.snapshot), idx.epoch
+    fit_ms = []
+    for _ in range(STREAM_FITS):
+        rows = stream_near(rng, cents, STREAM_BATCH)
+        _, s = stream_timed(kernels, launches, lambda: idx.insert(rows))
+        fit_ms.append(1e3 * s)
+        check(idx.epoch == epoch and stream_shapes(idx.snapshot) == shapes,
+              "streaming: a fitting insert changed a snapshot shape")
+    out["insert_fit_ms"] = fit_ms
+    rows = stream_near(rng, cents, STREAM_OVERFLOW)
+    _, s = stream_timed(kernels, launches, lambda: idx.insert(rows))
+    check(idx.epoch > epoch, "streaming: the overflowing insert kept "
+          "its epoch")
+    out["insert_overflow_ms"] = 1e3 * s
+    out["rows_after_inserts"] = idx.next_id
+    victims = rng.choice(idx.next_id, int(STREAM_DELETE * idx.next_id),
+                         replace=False)
+    live0 = idx.n_live
+    shapes = stream_shapes(idx.snapshot)
+    n_del, s = stream_timed(kernels, launches, lambda: idx.delete(victims))
+    check(n_del == len(victims) and idx.n_live == live0 - n_del
+          and stream_shapes(idx.snapshot) == shapes,
+          "streaming: the delete's count or shapes")
+    out["delete"] = {"ids": int(n_del), "ms": 1e3 * s}
+    rows_l, ids_l = idx._live_device()
+    rebuilt = st._flat_from_live(rows_l, ids_l, idx.flat.centroids,
+                                 idx.flat.metric)
+    searches = {}
+    for k in (10, IVF_RADIX_K):
+        use_radix = ivf_flat._use_radix(16 * idx.flat.cap_max, k)
+        got, s = stream_timed(kernels, launches, lambda: idx.search(q, k, 16))
+        want = ivf_flat._search_body(
+            q, rebuilt.centroids, rebuilt.packed_db, rebuilt.packed_ids,
+            rebuilt.starts, rebuilt.sizes, k=k, nprobe=16,
+            cap_max=rebuilt.cap_max, metric=rebuilt.metric,
+            use_radix=use_radix)
+        check(same_bits(got, want), f"streaming: the tombstoned search at "
+              f"k = {k} is not bitwise its rebuild's")
+        check(not np.isin(got[1].cpu().numpy(), victims).any(),
+              "streaming: a deleted id came back")
+        flat_ms = cuda_ms(lambda: ivf_flat.search(res, idx.flat, q, k, 16),
+                          3)
+        searches[f"k{k}"] = {"ms": 1e3 * s, "use_radix": use_radix,
+                             "bitwise_rebuild": True,
+                             "tombstoned_ms": cuda_ms(
+                                 lambda: idx.search(q, k, 16), 3),
+                             "ivf_flat_search_ms": flat_ms}
+    check(searches[f"k{IVF_RADIX_K}"]["use_radix"],
+          "streaming: k = 64 at nprobe 16 is not on the radix route")
+    got, s = stream_timed(kernels, launches,
+                          lambda: idx.search(q, 10, IVF_LISTS))
+    bd, bi = knn(res, rows_l, q, 10)
+    want = (bd, ids_l.to(bi.dtype)[bi.long()])
+    check(same_bits(got, want), "streaming: the exact path is not bitwise "
+          "knn over the live rows")
+    searches["exact"] = {"ms": 1e3 * s, "bitwise_knn": True}
+    out["search"] = searches
+    del rebuilt, rows_l, ids_l
+    return victims
+
+
+def stream_compact_refit(idx, q, rng, kernels, launches, out, jdir):
+    """The compaction (content and search bits kept), then shifted rows
+    until the drift gauge fires, and the refit."""
+    import torch
+
+    bits = idx.search(q, 10, 16)
+    crc, s = stream_timed(kernels, launches, idx.content_crc)
+    out["content_crc_s"] = s
+    _, s = stream_timed(kernels, launches, idx.live_rows)
+    out["live_rows_s"] = s
+    check(idx.tombstone_fraction() > 0, "streaming: nothing to compact")
+    _, s = stream_timed(kernels, launches,
+                        lambda: idx.compact(reason="test"))
+    check(idx.content_crc() == crc and same_bits(idx.search(q, 10, 16), bits)
+          and idx.tombstone_fraction() == 0.0,
+          "streaming: the compaction changed the content or the bits")
+    out["compact_s"] = s
+    cents = idx.flat.centroids.cpu().numpy()
+    ids0 = idx._live_device()[1]
+    batches = 0
+    while not idx.drift.triggered and batches < STREAM_DRIFT_BATCHES:
+        rows = stream_near(rng, cents, STREAM_BATCH, shift=STREAM_SHIFT)
+        stream_timed(kernels, launches, lambda: idx.insert(rows))
+        batches += 1
+    check(idx.drift.triggered, "streaming: the drift gauge never fired")
+    ratio = idx.drift.ratio
+    ids1 = idx._live_device()[1]
+    c0 = idx.flat.centroids.clone()
+    ran, s = stream_timed(kernels, launches, idx.maybe_refit)
+    check(ran and not torch.equal(c0, idx.flat.centroids),
+          "streaming: the refit did not move the centroids")
+    check(torch.equal(idx._live_device()[1], ids1)
+          and bool(torch.isin(ids0, ids1).all()),
+          "streaming: the refit lost an id")
+    ckpts = [f for f in os.listdir(os.path.join(jdir, "refit"))
+             if f.startswith("kmeans_pf-")]
+    check(ckpts, "streaming: the refit wrote no checkpoint")
+    out["refit"] = {"batches": batches, "drift_ratio": ratio, "s": s,
+                    "checkpoints": len(ckpts),
+                    "centroid_shift": float((idx.flat.centroids - c0)
+                                            .norm(dim=1).mean()),
+                    "baseline_reset": not idx.drift.triggered}
+    # WAL records past the refit's epoch, for the recovery to replay
+    cents = idx.flat.centroids.cpu().numpy()
+    rows = stream_near(rng, cents, STREAM_BATCH)
+    stream_timed(kernels, launches, lambda: idx.insert(rows))
+    stream_timed(kernels, launches,
+                 lambda: idx.delete(rng.choice(idx.next_id, 1000,
+                                               replace=False)))
+
+
+def stream_recover_scrub(st, Scrubber, FaultInjector, device_resources,
+                         res, idx, q, kernels, launches, out, jdir):
+    """Recovery on the card and on the host, then the scrubber: a clean
+    pass, a corrupted epoch file, a flipped byte of the packed rows on
+    the card."""
+    import torch
+
+    crc = idx.content_crc()
+    rec, s = stream_timed(kernels, launches,
+                          lambda: st.StreamingIndex.recover(res, jdir))
+    check(rec.content_crc() == crc, "streaming: the recovered CRC differs")
+    for k in (10, IVF_RADIX_K):
+        check(same_bits(rec.search(q, k, 16), idx.search(q, k, 16)),
+              f"streaming: the recovered search at k = {k} differs")
+    t0 = time.perf_counter()
+    cpu_rec = st.StreamingIndex.recover(device_resources("cpu"), jdir)
+    cpu_s = time.perf_counter() - t0
+    check(cpu_rec.content_crc() == crc,
+          "streaming: the host recovery's CRC differs")
+    out["recover"] = {"s": s, "cpu_s": cpu_s, "crc": crc,
+                      "replayed_epoch": rec.epoch, "n_live": rec.n_live}
+    del cpu_rec
+    sc = Scrubber(idx, interval=60.0,
+                  repair_source=lambda: st._epoch_entries(rec))
+    n_files = len([f for f in os.listdir(jdir) if f.endswith(".ckpt")])
+    rep, s = stream_timed(kernels, launches, sc.run_once)
+    check(rep.files_checked == n_files and not rep.corrupt,
+          f"streaming: the clean scrub saw {rep}")
+    scrub = {"files": rep.files_checked, "pass_s": s}
+    newest = idx.log.epoch_path(max(idx.log.epoch_steps()))
+    FaultInjector().corrupt_bytes(newest)
+    name = os.path.basename(newest)
+    rep, s = stream_timed(kernels, launches, sc.run_once)
+    check(rep.corrupt == [name] == rep.quarantined == rep.repaired
+          and os.path.exists(newest + ".quarantined")
+          and os.path.exists(newest),
+          f"streaming: the corrupted epoch was not repaired: {rep}")
+    scrub["epoch_repair_s"] = s
+    flat = idx.snapshot.flat
+    slot = int(torch.nonzero(flat.packed_ids >= 0)[0, 0])
+    raw = flat.packed_db.view(torch.uint8).view(-1)
+    raw[slot * flat.packed_db.shape[1] * flat.packed_db.element_size()
+        + 2] ^= 0xFF
+    check(idx.content_crc() != crc, "streaming: the flipped byte is not "
+          "in the content")
+    rep, s = stream_timed(kernels, launches, sc.run_once)
+    check(rep.memory_repaired and idx.content_crc() == crc
+          and same_bits(idx.search(q, 10, 16), rec.search(q, 10, 16)),
+          "streaming: the flipped device byte was not repaired")
+    scrub["memory_repair_s"] = s
+    out["scrub"] = scrub
+    del rec
+
+
+def stream_ingest(st, serve, res, dev, idx, rng, kernels, launches, out):
+    """An IngestController over the k = 10 and k = 64 services, warmed
+    at buckets 8 .. 64: a same-shape swap, then ``streaming_loop`` once
+    an op, every chosen response (at least ``STREAM_CHECKED`` in all)
+    held bitwise to an eager search of one of the snapshots of its
+    window, and no compile on the query path."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.neighbors import knn
+
+    # streaming_loop's queries and inserts are N(0, I) rows, which the
+    # blobs' database does not hold: a query's exact neighbours would be
+    # mostly the loop's own newest inserts, and its recall would measure
+    # how far the served snapshot trails the stream more than the search.
+    # Rows of that distribution go in first, as the reference test's
+    # database, queries and inserts share one distribution; the line gives
+    # the search's recall on queries drawn as the loop draws them, before
+    # and after.
+    draw = np.random.default_rng(SEED + 62)
+    qd = torch.from_numpy(draw.standard_normal(
+        (STREAM_RECALL_Q, idx.flat.dim)).astype(np.float32)).to(dev)
+    ing = {"recall_blobs_only": stream_recall(knn, res, idx, qd)}
+    rows = draw.standard_normal(
+        (STREAM_TRAFFIC_ROWS, idx.flat.dim)).astype(np.float32)
+    stream_timed(kernels, launches, lambda: idx.insert(rows))
+    ing["traffic_rows"] = STREAM_TRAFFIC_ROWS
+    ing["recall_with_traffic_rows"] = stream_recall(knn, res, idx, qd)
+    svcs = [serve.StreamingKnnService(idx, k=k, nprobe=p)
+            for k, p in STREAM_SERVICES]
+    ctl = serve.IngestController(
+        idx, svcs, policy=serve.BatchPolicy(max_batch=STREAM_MAX_BATCH,
+                                            max_wait_ms=2.0),
+        compact_interval=0.25, refit=False)
+    _, ing["warm_s"] = stream_timed(kernels, launches,
+                                    lambda: ctl.executor.warm())
+    warm_traces = ctl.executor.stats.traces
+    ing["warm_traces"] = warm_traces
+    chosen = {int(i) for i in np.flatnonzero(
+        rng.random(1 << 17) < STREAM_CHECK_RATE)}
+    cents = idx.flat.centroids.cpu().numpy()
+    loops = {}
+    try:
+        ctl.start(warm=False)
+        # a same-shape swap: a delete and a fitting insert serve at once
+        swaps, epochs = ctl.swaps, [s.serve_epoch for s in svcs]
+        stream_timed(kernels, launches, lambda: ctl.delete(
+            idx.live_rows()[1][:16]))
+        stream_timed(kernels, launches, lambda: ctl.insert(
+            stream_near(rng, cents, 64)))
+        qq = stream_near(rng, cents, 8)
+        got = ctl.submit(svcs[0].name, qq).result(timeout=60.0)
+        check(ctl.swaps == swaps
+              and [s.serve_epoch for s in svcs] == epochs
+              and ctl.executor.stats.traces == warm_traces
+              and same_bits(got, idx.search(torch.from_numpy(qq).to(dev),
+                                            svcs[0].k, svcs[0].nprobe)),
+              "streaming: a same-shape swap did not serve at once")
+        for svc in svcs:
+            kept = StreamKept(ctl, chosen)
+            rep, _ = stream_timed(kernels, launches, lambda: (
+                serve.streaming_loop(
+                    kept, svc.name, clients=STREAM_CLIENTS, rows=4,
+                    duration_s=STREAM_LOOP_S, ingest_rows=STREAM_INGEST_ROWS,
+                    ingest_interval_s=STREAM_INGEST_S, delete_frac=0.3,
+                    seed=SEED)))
+            loops[svc.name] = (rep, kept)
+    finally:
+        ctl.stop()
+    query_traces = (ctl.executor.stats.traces - warm_traces
+                    - ctl.rewarm_traces)
+    ing["rewarm_traces"] = ctl.rewarm_traces
+    ing["query_path_traces"] = query_traces
+    ing["swaps"], ing["refreshes"] = ctl.swaps, ctl.refreshes
+    ing["rewarm_s"] = [b - a for a, b in ctl.rewarm_windows]
+    ing["compactions"] = ctl.compactor.compactions
+    ing["loops"] = {}
+    out["ingest"] = ing
+    for name, (rep, kept) in loops.items():
+        swap_lat, calm_lat = [], []
+        for t0, t1 in kept.spans:
+            busy = any(a < t1 and t0 < b for a, b in ctl.rewarm_windows)
+            (swap_lat if busy else calm_lat).append(1e3 * (t1 - t0))
+        ing["loops"][name] = {**rep.as_dict(), "checked": len(kept.kept),
+                              "latency_in_swap": stream_pct(swap_lat),
+                              "latency_no_swap": stream_pct(calm_lat)}
+    check(query_traces == 0, f"streaming: the query path compiled "
+          f"{query_traces} times after warm()")
+    n_checked = sum(len(kept.kept) for _, kept in loops.values())
+    check(n_checked >= STREAM_CHECKED,
+          f"streaming: only {n_checked} responses checked")
+    for name, (rep, kept) in loops.items():
+        svc = ctl.executor.services[name]
+        check(rep.failed == 0 and rep.swaps >= 1,
+              f"streaming: {name}: no swap or a failed query")
+        check(rep.min_recall >= STREAM_RECALL[0]
+              and rep.mean_recall >= STREAM_RECALL[1],
+              f"streaming: {name} under the recall floor")
+        later = 0
+        for _, qb, got, snaps in kept.kept:
+            qt = torch.from_numpy(np.asarray(qb, np.float32)).to(dev)
+            for j, snap in enumerate(snaps):
+                if same_bits(tuple(got), st._search_snapshot(
+                        snap, qt, svc.k, svc.nprobe)):
+                    later += j > 0
+                    break
+            else:
+                check(False, f"streaming: {name}: a response matches no "
+                      "snapshot of its window")
+        ing["loops"][name]["served_a_later_snapshot"] = later
+
+
+def streaming_phase(res, dev):
+    """The streaming index at the ivf phase's scale (2^20 x 64, 1024
+    lists, 'high'), journaled under chiprun_out/streaming (removed
+    after): build, a provisioning compaction, fitting and overflowing
+    inserts, deletes, searches bitwise their rebuild and ``knn``, the
+    compaction, a drift refit, recovery on the card and on the host, the
+    scrubber's repairs and streaming ingest through the executor.
+    Prints one ``streaming`` line; returns the launches by kernel."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import device_resources, kernels, serve
+    from raft_tpu_torch.comms.faults import FaultInjector
+    from raft_tpu_torch.neighbors import ivf_flat, knn
+    from raft_tpu_torch.neighbors import streaming as st
+    from raft_tpu_torch.neighbors.scrub import Scrubber
+    from raft_tpu_torch.util import precision as tprec
+
+    root = os.path.abspath(os.path.join(OUT_DIR, "streaming"))
+    jdir = os.path.join(root, "journal")
+    shutil.rmtree(root, ignore_errors=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    x = blobs(gen, dev, IVF_N, IVF_D, IVF_LISTS)
+    q = x[:IVF_Q].clone()
+    rng = np.random.default_rng(SEED + 61)
+    launches, writes = {}, []
+    out = {"db": [IVF_N, IVF_D], "n_lists": IVF_LISTS, "queries": IVF_Q,
+           "max_iter": IVF_ITERS, "repack_slack": STREAM_SLACK,
+           "epoch_writes": writes}
+    t_phase = time.perf_counter()
+    try:
+        with tprec.scope("high"):
+            idx, out["build_s"] = stream_timed(
+                kernels, launches, lambda: st.stream_build(
+                    res, x, IVF_LISTS, directory=jdir, max_iter=IVF_ITERS,
+                    repack_slack=STREAM_SLACK))
+            del x
+            write = idx._write_epoch_locked
+
+            def timed_write(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                write(*a, **kw)
+                writes.append({"epoch": idx._epoch,
+                               "s": time.perf_counter() - t0,
+                               "bytes": os.path.getsize(
+                                   idx.log.epoch_path(idx._epoch))})
+            idx._write_epoch_locked = timed_write
+            _, out["provision_s"] = stream_timed(
+                kernels, launches, lambda: idx.compact(reason="provision"))
+            out["cap_max"] = idx.flat.cap_max
+            stream_mutations(st, ivf_flat, knn, res, idx, q, rng, kernels,
+                             launches, out)
+            stream_compact_refit(idx, q, rng, kernels, launches, out, jdir)
+            stream_recover_scrub(st, Scrubber, FaultInjector,
+                                 device_resources, res, idx, q, kernels,
+                                 launches, out, jdir)
+            stream_ingest(st, serve, res, dev, idx, rng, kernels, launches,
+                          out)
+            out["final"] = {"epoch": idx.epoch, "n_live": idx.n_live,
+                            "next_id": idx.next_id,
+                            "cap_max": idx.flat.cap_max}
+    except BaseException as exc:
+        # what the phase measured before the failed check, then the raise
+        emit("streaming", failed=str(exc), **out)
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in ("fused_argmin", "fused_lloyd", "fused_topk",
+                 "radix_threshold", "radix_emit"):
+        check(launches.get(name, 0) > 0,
+              f"streaming: the phase never launched {name}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("streaming", **out)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def same_bits(got, want):
     """Two results (a tensor or a tuple of them) on one device, bit for
     bit."""
@@ -8729,7 +9257,11 @@ def main():
     del db
     KEPT.clear()
     torch.cuda.empty_cache()
+    stream_launches = streaming_phase(res, dev)
     for row in table:
+        if stream_launches.get(row["name"], 0):
+            row["streaming_launches"] = stream_launches[row["name"]]
+            row["launches"] += stream_launches[row["name"]]
         if serve_launches.get(row["name"], 0):
             row["serve_launches"] = serve_launches[row["name"]]
             row["launches"] += serve_launches[row["name"]]

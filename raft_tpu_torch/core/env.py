@@ -88,6 +88,27 @@ def _parse_float(raw: str) -> float:
         raise ValueError(f"{raw!r} is not a number") from None
 
 
+def _parse_pos_float(raw: str) -> float:
+    try:
+        val = float(raw)
+    except ValueError:
+        raise ValueError(f"{raw!r} is not a number") from None
+    if not val > 0.0:
+        raise ValueError(f"{raw!r} must be > 0")
+    return val
+
+
+def _parse_ratio_ge1(raw: str) -> float:
+    """A trigger ratio: a float >= 1.0 (1.0 = trigger immediately)."""
+    try:
+        val = float(raw)
+    except ValueError:
+        raise ValueError(f"{raw!r} is not a number") from None
+    if not val >= 1.0:
+        raise ValueError(f"ratio must be >= 1.0, got {raw!r}")
+    return val
+
+
 def _parse_precision(raw: str) -> str:
     canon = PRECISION_ALIASES.get(raw.lower())
     if canon is None:
@@ -269,3 +290,24 @@ register("RAFT_TPU_PERF_PEAKS", _parse_peaks, None,
               "'flops=<num>,bytes=<num>' per-second peaks (either term "
               "alone overrides just that axis); malformed raises at the "
               "read site")
+
+# Streaming-index knobs (neighbors/streaming.py, neighbors/scrub.py):
+# fail loud, as the reference's. A typo'd threshold must not become
+# "never compact" or "always compact", a typo'd retention must not keep
+# everything or one epoch, and a typo'd scrub interval must not switch
+# the at-rest checks off.
+register("RAFT_TPU_COMPACT_TOMBSTONE_FRAC", _parse_rate, 0.25,
+         help="tombstone (and tail-full) fraction in [0, 1] at which the "
+              "background compactor repacks the streaming index")
+register("RAFT_TPU_COMPACT_INTERVAL", _parse_pos_float, 0.25,
+         help="background compactor poll interval in seconds (> 0)")
+register("RAFT_TPU_DRIFT_THRESHOLD", _parse_ratio_ge1, 2.0,
+         help="refit the coarse quantizer when the EMA of ingested rows' "
+              "nearest-centroid distance exceeds this multiple of the "
+              "build-time baseline (>= 1.0)")
+register("RAFT_TPU_WAL_RETAIN", _parse_pos_int, 2,
+         help="epoch snapshots the streaming MutationLog keeps (>= 1); "
+              "older ones and the WAL records they fold are pruned at "
+              "each epoch commit")
+register("RAFT_TPU_SCRUB_INTERVAL", _parse_pos_float, 1.0,
+         help="background scrubber pass interval in seconds (> 0)")

@@ -13,6 +13,10 @@ build the port's parameter objects from a plain dict (for example
 :func:`mdarray_from_numpy`, :func:`device_cache_state_from_numpy` and
 :func:`lap_costs_from_numpy` carry an ``MdArray`` (with its memory type
 and layout), a device cache's state and a LAP's cost batch.
+:func:`streaming_index_from_entries` turns a reference streaming index's
+epoch entries (``streaming._epoch_entries``) into the port's
+``StreamingIndex``; a journal directory needs nothing, since each
+package recovers the other's files.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from raft_tpu_torch.util.cache import DeviceCacheState
 
 __all__ = ["from_numpy", "kmeans_params_from_dict", "csr_from_numpy",
            "lanczos_config_from_dict", "mdarray_from_numpy",
-           "device_cache_state_from_numpy", "lap_costs_from_numpy"]
+           "device_cache_state_from_numpy", "lap_costs_from_numpy",
+           "streaming_index_from_entries"]
 
 
 def from_numpy(a, res=None, device=None):
@@ -117,3 +122,35 @@ def lap_costs_from_numpy(cost, res=None) -> torch.Tensor:
     axis) on the handle's device, dtype kept."""
     t = from_numpy(cost, res)
     return t[None] if t.ndim == 2 else t
+
+
+def streaming_index_from_entries(entries: Mapping, res=None, *, log=None,
+                                 faults=None, drift=None,
+                                 repack_slack: Optional[int] = None):
+    """A reference streaming index's epoch entries (the numpy dict of
+    ``raft_tpu.neighbors.streaming._epoch_entries``, or an epoch file's
+    ``restore_checkpoint``) as the port's
+    :class:`~raft_tpu_torch.neighbors.streaming.StreamingIndex` on the
+    handle's device: the same packing, tombstones, ids, horizon and term,
+    so the same ``content_crc()`` and search bits. With a ``log``
+    (a :class:`~raft_tpu_torch.neighbors.streaming.MutationLog`) the state
+    is written there as an epoch snapshot and the WAL cursor moves past
+    the horizon."""
+    from raft_tpu_torch.neighbors import streaming
+
+    flat = streaming._flat_from_entries(
+        entries, get_device(default_resources(res)))
+    kw = {} if repack_slack is None else {"repack_slack": repack_slack}
+    idx = streaming.StreamingIndex(
+        flat, log=log, faults=faults, res=res, drift=drift,
+        epoch=int(entries["epoch"]), next_id=int(entries["next_id"]),
+        tomb_host=np.asarray(entries["tomb_words"], np.uint32),
+        n_live=int(entries["n_live"]),
+        term=int(entries.get("wal_term", 0)), **kw)
+    idx._term_start = int(entries.get("wal_term_start", 0))
+    idx._applied_seq = int(entries.get("wal_horizon", -1))
+    if log is not None:
+        log.bump_seq(idx._applied_seq + 1)
+        with idx._lock:
+            idx._write_epoch_locked(crash=False)
+    return idx

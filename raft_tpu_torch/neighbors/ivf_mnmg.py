@@ -391,18 +391,23 @@ def search_mnmg(res, index: IvfMnmgIndex, queries, k: int, nprobe: int,
 
 
 def search_local(index: IvfMnmgIndex, rank: int, queries, k: int,
-                 nprobe: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                 nprobe: int, *, tomb_words=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One rank's half of the sharded search, no collective: raw
     ascending keys ``[q, k]`` and global ids ``[q, k]`` from ``rank``'s
     shard alone (+inf / -1 where it has fewer than k reachable
-    candidates), computed as :func:`search_mnmg` computes them."""
+    candidates), computed as :func:`search_mnmg` computes them.
+    ``tomb_words``: packed tombstones over global ids, as there."""
     queries = torch.as_tensor(queries, device=index.device)
     centroids = (index.local[0] if index.local is not None
                  else index.flat.centroids.to(index.device))
+    tomb = None if tomb_words is None else \
+        torch.as_tensor(tomb_words).to(index.device)
     return _probe_topk(queries, centroids, *index.shard(rank), k=k,
                        nprobe=nprobe, cap_max=index.cap_max,
                        metric=index.metric,
-                       use_radix=_use_radix(nprobe * index.cap_max, k))
+                       use_radix=_use_radix(nprobe * index.cap_max, k),
+                       tomb_words=tomb)
 
 
 def merge_pool(vals_stack, ids_stack, k: int, metric: str

@@ -1,8 +1,7 @@
 """raft_tpu_torch.serve — shape-bucketed dynamic batching with
 multi-tenant QoS, quality brownout, replica fleets with hedged dispatch,
-and the load generator with its chaos scenarios (counterpart of
-``raft_tpu/serve``; the streaming-ingest service of its ``ingest.py`` is
-not ported yet).
+the load generator with its chaos scenarios, and streaming ingest
+behind the executor (counterpart of ``raft_tpu/serve``).
 
 The serving runtime coalesces many small per-user query blocks into the
 large padded batches the card is fast at, while keeping the per-request
@@ -36,6 +35,8 @@ from raft_tpu_torch.serve.executor import (Executor, ExecutorStats,
                                            IvfPqKnnService, KMeansPredictService,
                                            KnnService, PairwiseService,
                                            Service)
+from raft_tpu_torch.serve.ingest import (IngestController, NotLeaderError,
+                                         StreamingKnnService)
 from raft_tpu_torch.serve.loadgen import (CatchupLoadReport, ChaosReport,
                                           FleetReport, LoadReport,
                                           StreamingReport,
@@ -61,6 +62,7 @@ __all__ = [
     "HedgePolicy",
     "BrownoutController", "BrownoutFloorError", "DegradationLadder",
     "ivf_ladder", "knn_ladder",
+    "StreamingKnnService", "IngestController",
     "LoadReport", "FleetReport", "ChaosReport", "StreamingReport",
     "CatchupLoadReport",
     "closed_loop", "open_loop", "fleet_closed_loop", "streaming_loop",

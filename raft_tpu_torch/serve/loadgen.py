@@ -38,6 +38,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from raft_tpu_torch.runtime import limits
 
@@ -893,26 +894,24 @@ class StreamingReport:
 
 def _snapshot_exact_ids(snap, q: np.ndarray, k: int) -> np.ndarray:
     """Exact top-k external ids over one streaming snapshot's live rows,
-    the numpy reference the per-query recall is scored against (test
-    scale only: it materializes the full distance matrix on the host)."""
+    the reference each query's recall is scored against. It runs on the
+    snapshot's device (on the card the host copy of a full-size database
+    would cost each query far more than its search): distances in f32 as
+    the reference's numpy formula writes them, a stable sort over the
+    rows in id order, the ids back on the host."""
+    from raft_tpu_torch.neighbors.streaming import _live_of
+
     flat = snap.flat
-    ids = _host(flat.packed_ids)
-    rows = _host(flat.packed_db)
-    live = ids >= 0
-    words = _host(snap.tomb_words)
-    if words.size:
-        safe = np.clip(ids, 0, None)
-        live &= ((words[safe // 32] >> (safe % 32)) & 1) == 0
-    rows, ids = rows[live], ids[live]
-    q = np.asarray(q, np.float32)
-    rows = np.asarray(rows, np.float32)
+    rows, ids = _live_of(flat, snap.tomb_words)
+    rows = rows.to(torch.float32)
+    qt = torch.as_tensor(np.asarray(q, np.float32), device=rows.device)
     if flat.metric == "ip":
-        d = -(q @ rows.T)
+        d = -(qt @ rows.T)
     else:
-        d = ((q * q).sum(1)[:, None] - 2.0 * (q @ rows.T)
+        d = ((qt * qt).sum(1)[:, None] - 2.0 * (qt @ rows.T)
              + (rows * rows).sum(1)[None, :])
-    top = np.argsort(d, axis=1, kind="stable")[:, :k]
-    return ids[top]
+    top = torch.sort(d, dim=1, stable=True).indices[:, :k]
+    return _host(ids[top])
 
 
 def streaming_loop(controller, op: str, *, clients: int = 4,

@@ -1680,3 +1680,42 @@ def test_replica_group_serves_eager_bits_on_card(card):
             assert a.device.type == "cuda" and torch.equal(a, w)
     assert [ex.stats.traces for ex in exs] == traces
     assert sum(r.routed for r in group.replicas) >= len(subs)
+
+
+@pytest.mark.cuda
+def test_streaming_tombstoned_radix_search_on_card(card, tmp_path):
+    """A small streaming index on the card: after fitting inserts and a
+    delete, its tombstoned search at k = 64 over more than 8,192
+    candidates (the radix kernels) is bitwise the search of a rebuild
+    of its live rows on the same centroids, and the delete launched no
+    repack (every snapshot tensor kept its shape)."""
+    from raft_tpu_torch import device_resources
+    from raft_tpu_torch.neighbors import ivf_flat, streaming
+
+    res = device_resources(card)
+    x, c = _ivf_data(7, 20000, 32, 64)
+    flat = ivf_flat.build(res, x.to(card), 64, centroids=c.to(card))
+    idx = streaming.StreamingIndex(flat, res=res, repack_slack=64)
+    idx.compact(reason="provision")
+    shapes = [tuple(t.shape) for t in (idx.flat.packed_db,
+                                       idx.snapshot.tomb_words)]
+    g = torch.Generator().manual_seed(8)
+    idx.insert((c[torch.randint(0, 64, (256,), generator=g)]
+                + 0.1 * torch.randn(256, 32, generator=g)).numpy())
+    idx.delete(torch.randperm(20000, generator=g)[:2000].numpy())
+    assert [tuple(t.shape) for t in (idx.flat.packed_db,
+                                     idx.snapshot.tomb_words)] == shapes
+    probe_rows = 16 * idx.flat.cap_max
+    assert probe_rows > 8192 and ivf_flat._use_radix(probe_rows, 64)
+    rows, ids = idx._live_device()
+    rebuilt = streaming._flat_from_live(rows, ids, idx.flat.centroids,
+                                        idx.flat.metric)
+    q = x[:48].to(card) + 0.01
+    kernels.reset_launch_counts()
+    got = idx.search(q, 64, 16)
+    assert kernels.launch_counts()["radix_emit"] > 0
+    want = ivf_flat._search_body(
+        q, rebuilt.centroids, rebuilt.packed_db, rebuilt.packed_ids,
+        rebuilt.starts, rebuilt.sizes, k=64, nprobe=16,
+        cap_max=rebuilt.cap_max, metric="l2", use_radix=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
