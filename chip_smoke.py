@@ -200,6 +200,25 @@ just after:
   floor, no build, export or capture on the query path after
   ``warm()``; ``fused_argmin``, ``fused_lloyd``, ``fused_topk`` and the
   radix kernels launched;
+- the replicated streaming fleet (the ``replication`` line, after
+  ``streaming``, at its scale): a leader and two followers, each
+  journaled under ``chiprun_out/replication`` (removed after) with its
+  own election node, on one in-process mailbox; both followers
+  bootstrapped blank by a snapshot frame (bytes and seconds, CRC equal
+  to the leader's); four fitting inserts of 4096 rows and a delete of
+  10% of the ids under 'async', then under 'majority' acks (each
+  write's ms, the lag gauge); the followers' searches at nprobe 16, k =
+  10 and 64, bitwise the leader's; the overflowing insert of 65,536 and
+  a forced refit applied by the followers (CRC equal after each); the
+  leader's node stopped with one follower a write behind: the other is
+  elected by both, takes a write, and no quorum-acked write is lost;
+  the old leader, back with a suffix nobody saw, is fenced, truncates,
+  demotes and heals (time to elect and to heal); a follower's write
+  raises ``NotLeaderError``; served responses bitwise an eager search of
+  their snapshot, no compile after ``warm()``; a follower rebooted from
+  its journal caught up under query load above the recall floor;
+  ``fused_argmin``, ``fused_lloyd``, ``fused_topk`` and the radix
+  kernels launched;
 - AOT artifacts (the ``aot`` line): ``lloyd_step`` at config 3's shape
   and ``radix_select_k`` at the select shape exported, saved with the
   sha256 sidecar, loaded and run in a fresh ``python`` process bitwise
@@ -9003,6 +9022,552 @@ def streaming_phase(res, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the replication phase: a leader and two followers of the streaming index,
+# the WAL shipped between them, quorum acks, an election and a rejoin, at
+# the streaming phase's scale
+# ---------------------------------------------------------------------------
+
+REPL_FLEET = (0, 1, 2)
+# silence before an election, and the leader's pulse: the three nodes
+# share one process, where a 290 MB snapshot's encode or install can hold
+# the interpreter for a good part of a second
+REPL_ELECTION_S, REPL_HEARTBEAT_S = 2.0, 0.25
+REPL_WAIT_S = 120.0               # the longest wait for a follower or a vote
+REPL_RECALL_FLOOR = 0.99          # tests/test_durability.py: the exact probe
+REPL_QUERY_ROWS = 8               # the served batches: one warmed bucket
+
+
+def repl_box():
+    """The in-process mailbox, counting the bytes put on each tag."""
+    import collections
+    import threading
+
+    from raft_tpu_torch.comms.comms import _Mailbox
+
+    class TallyBox(_Mailbox):
+        def __init__(self):
+            super().__init__()
+            self.sent = collections.Counter()
+            self._tally = threading.Lock()
+
+        def put(self, source, dest, tag, payload):
+            with self._tally:
+                self.sent[tag] += int(payload.nbytes)
+            super().put(source, dest, tag, payload)
+
+    return TallyBox()
+
+
+def repl_timed(fn):
+    """``fn()`` synchronized: its value and its seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def repl_wait(cond, what, timeout=REPL_WAIT_S):
+    """Poll ``cond()`` every 2 ms; the seconds it took, or a failed
+    check at ``timeout``."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout, f"replication: {what}")
+        time.sleep(0.002)
+    return time.perf_counter() - t0
+
+
+class ReplPumps:
+    """One thread a follower draining its live records (the followers'
+    apply loop while no election node runs); a worker's error is raised
+    at ``stop``."""
+
+    def __init__(self, followers):
+        import threading
+
+        self.stop_ev = threading.Event()
+        self.errors = []
+        self.threads = [threading.Thread(target=self._pump, args=(wf,),
+                                         daemon=True) for wf in followers]
+        for t in self.threads:
+            t.start()
+
+    def _pump(self, wf):
+        try:
+            while not self.stop_ev.is_set():
+                if wf.drain() == 0:
+                    time.sleep(0.002)
+        except BaseException as exc:   # raised at stop()
+            self.errors.append(exc)
+
+    def stop(self):
+        self.stop_ev.set()
+        for t in self.threads:
+            t.join(timeout=REPL_WAIT_S)
+        if self.errors:
+            raise self.errors[0]
+
+
+def repl_lag(obs_metrics):
+    """The ``wal_replication_lag_seconds`` gauge by follower."""
+    fam = obs_metrics.get_registry().snapshot().get(
+        "wal_replication_lag_seconds")
+    return {s["labels"]["follower"]: s["value"]
+            for s in (fam["series"] if fam else [])}
+
+
+def repl_ship(st, ws, idx0, n0, fol, box, obs_metrics, rng, acked, out):
+    """Bootstrap both followers by snapshot, then ship four fitting
+    inserts and a delete of 10% of the ids under 'async' and under
+    'majority'; every follower's CRC equal to the leader's."""
+    crc0 = idx0.content_crc()
+    boot = []
+    for r, wf in fol.items():
+        before = box.sent[ws.TAG_CATCHUP]
+        rpt = wf.catch_up(timeout=REPL_WAIT_S)
+        check(rpt.snapshot and wf.index.content_crc() == crc0
+              and wf.applied_seq == idx0.applied_seq,
+              f"replication: follower {r}'s snapshot resync")
+        boot.append({"rank": r, "s": rpt.seconds,
+                     "bytes": box.sent[ws.TAG_CATCHUP] - before})
+    # the frame's parts, once: the entries read to the host, the
+    # container written, read back
+    ent, s_ent = repl_timed(lambda: st._epoch_entries(idx0))
+    fr, s_enc = repl_timed(lambda: ws.encode_frame(
+        {**ent, "_frame": ws.FRAME_SNAPSHOT}))
+    _, s_dec = repl_timed(lambda: ws.decode_frame(fr))
+    out["bootstrap"] = {"followers": boot, "frame_bytes": int(fr.nbytes),
+                        "entries_s": s_ent, "encode_s": s_enc,
+                        "decode_s": s_dec}
+    del ent, fr
+    cents = idx0.flat.centroids.cpu().numpy()
+    pumps = ReplPumps(list(fol.values()))
+    try:
+        modes = {}
+        for mode in ("async", "majority"):
+            if mode == "majority":
+                old = n0.shipper
+                old.stop()
+                old.detach()
+                n0.acks = "majority"
+                n0.shipper = ws.WalShipper(
+                    idx0, box, 0, list(fol), acks="majority",
+                    ack_timeout=REPL_WAIT_S, poll_interval=0.01)
+                n0.shipper.attach().start()
+            wal0 = box.sent[ws.TAG_WAL]
+            ins = []
+            for _ in range(STREAM_FITS):
+                rows = stream_near(rng, cents, STREAM_BATCH)
+                wid = idx0.next_id         # a new write id an insert
+                ids, s = repl_timed(lambda: idx0.insert(rows, write_id=wid))
+                ins.append(1e3 * s)
+                if mode == "majority":
+                    acked.append((wid, ids))
+            victims = rng.choice(idx0.next_id, int(STREAM_DELETE
+                                                   * idx0.next_id),
+                                 replace=False)
+            n_del, s = repl_timed(lambda: idx0.delete(victims))
+            if mode == "majority":
+                acked.append(("delete", victims))
+            caught = repl_wait(lambda: all(
+                wf.applied_seq == idx0.applied_seq for wf in fol.values()),
+                f"the followers never caught up under {mode}")
+            time.sleep(0.05)            # the poller folds the last acks
+            n0.shipper.drain_acks()
+            modes[mode] = {"insert_ms": ins, "delete_ms": 1e3 * s,
+                           "deleted": int(n_del),
+                           "caught_up_after_s": caught,
+                           "wal_bytes": box.sent[ws.TAG_WAL] - wal0,
+                           "lag_s": repl_lag(obs_metrics),
+                           "quorum_waits": n0.shipper.quorum_waits}
+            crc = idx0.content_crc()
+            check(all(wf.index.content_crc() == crc
+                      for wf in fol.values()),
+                  f"replication: a follower's CRC under {mode}")
+            modes[mode]["crc_equal"] = True
+        check(modes["majority"]["quorum_waits"] == STREAM_FITS + 1,
+              "replication: a majority write did not wait for its ack")
+        out["ship"] = modes
+    finally:
+        pumps.stop()
+    return cents
+
+
+def repl_search(ivf_flat, idx0, fol, q, out):
+    """Each follower's searches at nprobe 16, k = 10 and 64, bitwise the
+    leader's."""
+    searches = {}
+    for k in (10, IVF_RADIX_K):
+        want, s = repl_timed(lambda: idx0.search(q, k, 16))
+        row = {"leader_ms": 1e3 * s,
+               "use_radix": ivf_flat._use_radix(16 * idx0.flat.cap_max, k)}
+        for r, wf in fol.items():
+            got, s = repl_timed(lambda: wf.index.search(q, k, 16))
+            check(same_bits(got, want), f"replication: follower {r}'s "
+                  f"search at k = {k} is not bitwise the leader's")
+            row[f"follower{r}_ms"] = 1e3 * s
+        row["bitwise_leader"] = True
+        searches[f"k{k}"] = row
+    check(searches[f"k{IVF_RADIX_K}"]["use_radix"],
+          "replication: k = 64 at nprobe 16 is not on the radix route")
+    out["search"] = searches
+
+
+def repl_repack(idx0, fol, rng, cents, acked, out):
+    """The overflowing insert (a repack on the leader, applied as one by
+    the followers) and a forced refit (a KIND_CENTROIDS record); the CRC
+    equal on all three after each."""
+    import torch
+
+    pumps = ReplPumps(list(fol.values()))
+    try:
+        steps = {}
+        epoch = idx0.epoch
+        rows = stream_near(rng, cents, STREAM_OVERFLOW)
+        wid = idx0.next_id
+        ids, s = repl_timed(lambda: idx0.insert(rows, write_id=wid))
+        acked.append((wid, ids))
+        check(idx0.epoch > epoch, "replication: the overflowing insert "
+              "kept its epoch")
+        for name, fn in (("overflow_insert", None),
+                         ("refit", lambda: idx0.maybe_refit(force=True))):
+            if fn is not None:
+                ran, s = repl_timed(fn)
+                check(ran, "replication: the forced refit did not run")
+            caught = repl_wait(lambda: all(
+                wf.applied_seq == idx0.applied_seq for wf in fol.values()),
+                f"the followers never applied the {name}")
+            crc = idx0.content_crc()
+            check(all(wf.index.content_crc() == crc
+                      for wf in fol.values()),
+                  f"replication: a follower's CRC after the {name}")
+            steps[name] = {"leader_s": s, "caught_up_after_s": caught,
+                           "crc_equal": True,
+                           "epochs": [idx0.epoch] + [wf.index.epoch for wf
+                                                     in fol.values()]}
+        check(all(torch.equal(wf.index.flat.centroids,
+                              idx0.flat.centroids) for wf in fol.values()),
+              "replication: the shipped centroids differ")
+        out["repack"] = steps
+    finally:
+        pumps.stop()
+
+
+def repl_controller(serve, idx, node):
+    svc = serve.StreamingKnnService(idx, k=10, nprobe=16)
+    return serve.IngestController(
+        idx, [svc], policy=serve.BatchPolicy(max_batch=REPL_QUERY_ROWS,
+                                             max_wait_ms=2.0),
+        compact_interval=3600.0, refit=False,
+        warm_buckets=[REPL_QUERY_ROWS], election=node)
+
+
+def repl_failover(ElectionNode, NotLeaderError, serve, idx0, n0, fol, box,
+                  rng, cents, acked, live, out):
+    """Each follower behind an election node and an ``IngestController``;
+    rank 1 cut off for one write, so rank 2 holds the higher applied seq;
+    the leader's node stopped (its pulse stops) and a suffix journaled on
+    it alone; the survivors elect rank 2, which takes a write that rank 1
+    heals to and acks; a follower's write raises ``NotLeaderError``; the
+    old leader comes back as a stale leader, is fenced, truncates its
+    suffix, demotes and heals."""
+    import numpy as np
+
+    kw = dict(acks="majority", ack_timeout=REPL_WAIT_S,
+              election_timeout=REPL_ELECTION_S,
+              heartbeat_interval=REPL_HEARTBEAT_S)
+    nodes = {r: ElectionNode(wf.index, box, r, list(REPL_FLEET),
+                             role="follower", leader=0, follower=wf, **kw)
+             for r, wf in fol.items()}
+    ctls = {r: repl_controller(serve, fol[r].index, nodes[r]) for r in fol}
+    # the pulse first: a follower node that starts hears it at once
+    n0.start()
+    warm = {}
+    for r, ctl in ctls.items():
+        live["ctls"].append(ctl)
+        _, s = repl_timed(ctl.start)
+        warm[r] = {"s": s, "traces": ctl.executor.stats.traces}
+    # rank 1 misses one acked write: rank 2 holds the higher applied seq
+    n0.shipper.followers.remove(1)
+    rows = stream_near(rng, cents, STREAM_BATCH)
+    wid = idx0.next_id
+    ids, _ = repl_timed(lambda: idx0.insert(rows, write_id=wid))
+    acked.append((wid, ids))
+    repl_wait(lambda: fol[2].applied_seq == idx0.applied_seq,
+              "rank 2 never applied the write rank 1 missed")
+    acked_seq = idx0.applied_seq
+    check(fol[1].applied_seq == acked_seq - 1,
+          "replication: rank 1 was not one write behind")
+    t_stop = time.perf_counter()
+    n0.stop()                          # the pulse stops
+    live["nodes"].remove(n0)
+    # and the transport's failure detector sees the leader go, as a TCP
+    # mailbox does at the connection's end: both followers notice at
+    # their next tick. (On the silence timeout alone, one follower may
+    # finish an election before the other sees the silence; ROADMAP
+    # queue C.)
+    box.fail_peer(0, "leader stopped")
+    repl_wait(lambda: all(n.last_election is not None
+                          for n in nodes.values()) and nodes[1].leader == 2,
+              "no election after the leader stopped")
+    elect_s = time.perf_counter() - t_stop
+    # the cut-off leader journals a suffix nobody receives
+    idx0.insert(stream_near(rng, cents, 64))
+    stale_seq = idx0.applied_seq
+    recs = {r: n.last_election for r, n in nodes.items()}
+    check(all((rc.winner, rc.term, rc.survivors, rc.votes)
+              == (recs[2].winner, recs[2].term, recs[2].survivors,
+                  recs[2].votes) for rc in recs.values()),
+          f"replication: the survivors recorded different elections "
+          f"{recs}")
+    check(recs[2].winner == 2 and recs[2].promoted and recs[2].term == 1
+          and recs[2].votes[2][1] == acked_seq
+          and recs[2].votes[1][1] == acked_seq - 1,
+          f"replication: the most caught-up follower did not win {recs}")
+    idx2, ctl1, ctl2 = fol[2].index, ctls[1], ctls[2]
+    rows = stream_near(rng, cents, STREAM_BATCH)
+    wid = idx2.next_id
+    ids, s_write = repl_timed(lambda: ctl2.insert(rows, write_id=wid))
+    acked.append((wid, ids))
+    try:
+        ctl1.insert(stream_near(rng, cents, 8))
+        check(False, "replication: a follower took a write")
+    except NotLeaderError as exc:
+        check(exc.leader == 2 and exc.rank == 1,
+              f"replication: the redirect names {exc.leader}")
+        redirect = {"error": type(exc).__name__, "rank": exc.rank,
+                    "leader": exc.leader}
+    repl_wait(lambda: nodes[1].index.applied_seq == idx2.applied_seq,
+              "rank 1 never healed to the new leader")
+    check(nodes[1].index.content_crc() == idx2.content_crc(),
+          "replication: rank 1's CRC after the election")
+    # the old leader rejoins, still a leader of term 0 in its own eyes;
+    # its first frame revives it in the transport
+    box.revive_peer(0)
+    stale = ElectionNode(idx0, box, 0, list(REPL_FLEET), role="leader",
+                         leader=0, **kw)
+    t_heal = time.perf_counter()
+    stale.start()
+    live["nodes"].append(stale)
+    repl_wait(lambda: stale.role == "follower"
+              and idx0.applied_seq == idx2.applied_seq,
+              "the old leader never demoted and healed")
+    heal_s = time.perf_counter() - t_heal
+    fence = stale.last_fence
+    check(fence is not None and fence.stale_term == 0
+          and fence.current_term == 1 and fence.divergence == acked_seq + 1
+          and stale_seq == acked_seq + 1,
+          f"replication: the fence {fence!r}")
+    crc = idx2.content_crc()
+    check(idx0.content_crc() == crc and nodes[1].index.content_crc() == crc,
+          "replication: the fleet's CRCs after the rejoin")
+    lost = [w for w, v in acked if w != "delete"
+            and not np_equal(idx2.seen_write_id(w), v)]
+    check(not lost, f"replication: acked writes lost {lost}")
+    live_ids = idx2._live_device()[1].cpu().numpy()
+    check(not any(np.isin(v, live_ids).any() for w, v in acked
+                  if w == "delete"),
+          "replication: an acked delete came back")
+    out["failover"] = {
+        "warm": warm, "elect_s": elect_s,
+        "election_record_s": {r: rc.seconds for r, rc in recs.items()},
+        "winner": recs[2].winner, "term": recs[2].term,
+        "votes": {r: list(v) for r, v in recs[2].votes.items()},
+        "new_leader_write_ms": 1e3 * s_write, "follower_write": redirect,
+        "stale_suffix_seq": stale_seq, "divergence": fence.divergence,
+        "heal_s": heal_s, "acked_writes": len(acked),
+        "acked_lost": 0, "since_stop_s": time.perf_counter() - t_stop}
+    return ctls
+
+
+def np_equal(a, b):
+    import numpy as np
+
+    return a is not None and np.array_equal(a, b)
+
+
+def repl_serve(st, ws, catchup_under_load, res, dev, ctls, fol, box, rng,
+               cents, dirs, live, out):
+    """Served queries on the new leader and a follower with no compile
+    after ``warm()`` (the promotion included); then rank 1 is rebooted
+    from its journal and caught up under query load while the leader
+    takes writes it misses."""
+    import torch
+
+    ctl1, ctl2 = ctls[1], ctls[2]
+    idx2 = fol[2].index
+    q = torch.from_numpy(stream_near(rng, cents, REPL_QUERY_ROWS)).to(dev)
+    lagging = {}
+    for r, ctl in ((2, ctl2), (1, ctl1)):
+        svc = ctl.streaming_services[0]
+        for _ in range(8):
+            got = ctl.submit(svc.name, q).result(timeout=REPL_WAIT_S)
+        # a follower's service rolls forward on role changes only: hold
+        # the response to an eager search of the snapshot it serves
+        snap = {s.version: s for s in ctl.stream.recent_snapshots()}.get(
+            svc._version)
+        check(snap is not None and same_bits(tuple(got), st._search_snapshot(
+            snap, q, svc.k, svc.nprobe)), f"replication: rank {r}'s served "
+              f"response is not the eager search of its snapshot")
+        lagging[r] = ctl.stream.version - svc._version
+    traces = {r: ctl.executor.stats.traces - out["failover"]["warm"][r][
+        "traces"] - ctl.rewarm_traces for r, ctl in ctls.items()}
+    check(all(t == 0 for t in traces.values()),
+          f"replication: the query path compiled after warm(): {traces}")
+    # reboot rank 1 from its journal while the leader takes writes
+    ctl1.stop()
+    live["ctls"].remove(ctl1)
+    writes = []
+    for _ in range(2):
+        rows = stream_near(rng, cents, STREAM_BATCH)
+        _, s = repl_timed(lambda: ctl2.insert(rows))
+        writes.append(1e3 * s)
+    rec, s_rec = repl_timed(lambda: st.StreamingIndex.recover(res, dirs[1]))
+    rec.repack_slack = STREAM_SLACK
+    behind = idx2.applied_seq - rec.applied_seq
+    check(behind >= 2, "replication: the rebooted follower was not behind")
+    wf = ws.WalFollower(rec, box, 1, 2)
+    rep = catchup_under_load(wf, k=10, nprobe=IVF_LISTS,
+                             target_seq=idx2.applied_seq, rows=4,
+                             seed=SEED, wait_s=REPL_WAIT_S)
+    check(rep.applied_seq >= rep.target_seq and rep.queries >= 1
+          and rep.min_recall >= REPL_RECALL_FLOOR,
+          f"replication: catch-up under load {rep.as_dict()}")
+    check(rec.content_crc() == idx2.content_crc(),
+          "replication: the rebooted follower's CRC")
+    out["serve"] = {"query_path_traces": traces,
+                    "served_versions_behind": lagging,
+                    "leader_writes_ms": writes,
+                    "reboot": {"recover_s": s_rec, "behind": behind,
+                               **rep.as_dict()}}
+    return rec
+
+
+def repl_shutdown(live, quiet=False):
+    """Stop the controllers (and their nodes), then the other nodes; the
+    first worker error is raised unless ``quiet``."""
+    errors = []
+    for part in (live["ctls"], live["nodes"]):
+        for x in list(part):
+            try:
+                x.stop()
+            except BaseException as exc:
+                errors.append(exc)
+        part.clear()
+    if errors and not quiet:
+        raise errors[0]
+
+
+def replication_phase(res, dev):
+    """A leader and two followers of the streaming index at the streaming
+    phase's scale (2^20 x 64, 1024 lists, 64 slack slots a list,
+    'high'), each journaled under chiprun_out/replication (removed
+    after), talking through the in-process mailbox, each with its own
+    election node: the followers bootstrapped blank by snapshot, live
+    records under 'async' and 'majority' acks, searches bitwise the
+    leader's, a repack and a refit applied alike, a failover with no
+    acked write lost and the old leader's rejoin, then serving and a
+    follower rebooted and caught up under query load. Prints one
+    ``replication`` line; returns the launches by kernel."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import kernels, obs, serve
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.neighbors import streaming as st
+    from raft_tpu_torch.neighbors import wal_ship as ws
+    from raft_tpu_torch.neighbors.election import ElectionNode
+    from raft_tpu_torch.obs import metrics as obs_metrics
+    from raft_tpu_torch.serve.ingest import NotLeaderError
+    from raft_tpu_torch.serve.loadgen import catchup_under_load
+    from raft_tpu_torch.util import precision as tprec
+
+    root = os.path.abspath(os.path.join(OUT_DIR, "replication"))
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = [os.path.join(root, f"n{r}") for r in REPL_FLEET]
+    box = repl_box()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    rng = np.random.default_rng(SEED + 71)
+    out = {"db": [IVF_N, IVF_D], "n_lists": IVF_LISTS, "queries": IVF_Q,
+           "repack_slack": STREAM_SLACK, "fleet": list(REPL_FLEET),
+           "election_timeout_s": REPL_ELECTION_S,
+           "heartbeat_s": REPL_HEARTBEAT_S}
+    live = {"ctls": [], "nodes": []}
+    acked = []
+    old_reg = obs_metrics.set_registry(obs.MetricsRegistry())
+    was = obs.set_enabled(True)        # wal_replication_lag_seconds
+    kernels.reset_launch_counts()
+    t_phase = time.perf_counter()
+    try:
+        with tprec.scope("high"):
+            x = blobs(gen, dev, IVF_N, IVF_D, IVF_LISTS)
+            q = x[:IVF_Q].clone()
+            idx0, out["build_s"] = repl_timed(lambda: st.stream_build(
+                res, x, IVF_LISTS, directory=dirs[0], max_iter=IVF_ITERS,
+                repack_slack=STREAM_SLACK))
+            del x
+            _, out["provision_s"] = repl_timed(
+                lambda: idx0.compact(reason="provision"))
+            n0 = ElectionNode(idx0, box, 0, list(REPL_FLEET), role="leader",
+                              leader=0, acks="async",
+                              ack_timeout=REPL_WAIT_S,
+                              election_timeout=REPL_ELECTION_S,
+                              heartbeat_interval=REPL_HEARTBEAT_S)
+            n0.shipper.poll_interval = 0.01
+            n0.shipper.attach().start()
+            # its stop() stops whichever shipper it holds, started or not
+            live["nodes"].append(n0)
+            fol = {}
+            for r in (1, 2):
+                fidx = ws.bootstrap_follower(res, dim=IVF_D,
+                                             n_lists=IVF_LISTS,
+                                             directory=dirs[r])
+                # the leader's setting: a repack leaves the same tails
+                fidx.repack_slack = STREAM_SLACK
+                fol[r] = ws.WalFollower(fidx, box, r, 0)
+            cents = repl_ship(st, ws, idx0, n0, fol, box, obs_metrics, rng,
+                              acked, out)
+            repl_search(ivf_flat, idx0, fol, q, out)
+            repl_repack(idx0, fol, rng, cents, acked, out)
+            ctls = repl_failover(ElectionNode, NotLeaderError, serve, idx0,
+                                 n0, fol, box, rng, cents, acked, live, out)
+            rec = repl_serve(st, ws, catchup_under_load, res, dev, ctls,
+                             fol, box, rng, cents, dirs, live, out)
+            repl_shutdown(live)
+            crc = fol[2].index.content_crc()
+            check(idx0.content_crc() == crc and rec.content_crc() == crc,
+                  "replication: the fleet's final CRCs")
+            out["final"] = {"crc": crc, "applied_seq": fol[2].applied_seq,
+                            "n_live": fol[2].index.n_live,
+                            "epochs": [idx0.epoch, rec.epoch,
+                                       fol[2].index.epoch]}
+    except BaseException as exc:
+        repl_shutdown(live, quiet=True)
+        # what the phase measured before the failed check, then the raise
+        emit("replication", failed=str(exc), **out)
+        raise
+    finally:
+        obs.set_enabled(was)
+        obs_metrics.set_registry(old_reg)
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {n: c for n, c in kernels.launch_counts().items() if c}
+    for name in ("fused_argmin", "fused_lloyd", "fused_topk",
+                 "radix_threshold", "radix_emit"):
+        check(launches.get(name, 0) > 0,
+              f"replication: the phase never launched {name}")
+    out["launches"] = launches
+    out["mailbox_bytes"] = {str(t): int(b) for t, b in box.sent.items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("replication", **out)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def same_bits(got, want):
     """Two results (a tensor or a tuple of them) on one device, bit for
     bit."""
@@ -9258,10 +9823,14 @@ def main():
     KEPT.clear()
     torch.cuda.empty_cache()
     stream_launches = streaming_phase(res, dev)
+    repl_launches = replication_phase(res, dev)
     for row in table:
         if stream_launches.get(row["name"], 0):
             row["streaming_launches"] = stream_launches[row["name"]]
             row["launches"] += stream_launches[row["name"]]
+        if repl_launches.get(row["name"], 0):
+            row["replication_launches"] = repl_launches[row["name"]]
+            row["launches"] += repl_launches[row["name"]]
         if serve_launches.get(row["name"], 0):
             row["serve_launches"] = serve_launches[row["name"]]
             row["launches"] += serve_launches[row["name"]]

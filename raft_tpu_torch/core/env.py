@@ -109,6 +109,23 @@ def _parse_ratio_ge1(raw: str) -> float:
     return val
 
 
+def _parse_quorum(raw: str) -> "str | int":
+    """WAL ack mode: ``async`` | ``majority`` | ``all`` | a positive
+    integer follower count."""
+    val = raw.strip().lower()
+    if val in ("async", "majority", "all"):
+        return val
+    try:
+        count = int(val)
+    except ValueError:
+        raise ValueError(
+            f"want async|majority|all or a positive int, got {raw!r}"
+        ) from None
+    if count < 1:
+        raise ValueError(f"explicit ack count must be >= 1, got {raw!r}")
+    return count
+
+
 def _parse_precision(raw: str) -> str:
     canon = PRECISION_ALIASES.get(raw.lower())
     if canon is None:
@@ -311,3 +328,15 @@ register("RAFT_TPU_WAL_RETAIN", _parse_pos_int, 2,
               "each epoch commit")
 register("RAFT_TPU_SCRUB_INTERVAL", _parse_pos_float, 1.0,
          help="background scrubber pass interval in seconds (> 0)")
+
+# Failover knobs (neighbors/election.py, neighbors/wal_ship.py): fail
+# loud. A typo'd election timeout must not become "never elect", and a
+# typo'd quorum mode must not weaken acked writes to async.
+register("RAFT_TPU_ELECTION_TIMEOUT", _parse_pos_float, 1.0,
+         help="heartbeat silence in seconds (> 0) after which a follower "
+              "starts a leader election; also the ballot exchange's "
+              "per-peer timeout")
+register("RAFT_TPU_WAL_QUORUM", _parse_quorum, "async",
+         help="WalShipper ack mode: 'async' (return on the local journal "
+              "and apply), 'majority', 'all', or a positive follower "
+              "count")

@@ -259,9 +259,11 @@ class MutationLog:
                 self._on_append.append(fn)
 
     def remove_on_append(self, fn: Callable[[Dict], None]) -> None:
-        """Unregister a subscriber; one not registered is a no-op."""
+        """Unregister a subscriber; one not registered is a no-op. It
+        compares by equality, as ``add_on_append`` does, so a bound
+        method (a new object at each attribute access) is found."""
         with self._lock:
-            self._on_append = [h for h in self._on_append if h is not fn]
+            self._on_append = [h for h in self._on_append if h != fn]
 
     # -- WAL ----------------------------------------------------------
 

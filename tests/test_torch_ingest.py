@@ -3,7 +3,8 @@
 ``raft_tpu.serve.ingest`` on the CPU: ``tests/test_streaming.py``'s
 ``TestServe`` cases, the served bits of ``StreamingKnnService`` beside
 the reference service's, the leader redirect against a stand-in
-election object with the reference's attributes, and the recall
+election object with the reference's attributes and against the port's
+own ``ElectionNode``, and the recall
 scorer of ``loadgen.streaming_loop`` beside the reference's.
 
 Tolerances:
@@ -13,6 +14,9 @@ Tolerances:
   |q|^2 + max|x|^2 (two f32 summation orders at tier 'high');
 - recall: the reference test's floors (min 0.5, mean 0.85).
 """
+
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -252,6 +256,54 @@ class TestLeader:
             ids = ctl.insert(_rows(3))
             np.testing.assert_array_equal(ids, [160, 161, 162])
         assert el.stopped
+
+    def test_real_election_node_redirects_then_promotes(self, tmp_path):
+        """The same wiring with the port's ``ElectionNode``: a follower's
+        controller redirects writes, a real two-survivor election
+        promotes it (the snapshot rolls forward on the node's callback),
+        and then it takes writes."""
+        from raft_tpu_torch.comms.comms import _Mailbox
+        from raft_tpu_torch.neighbors.election import ElectionNode
+
+        db = _db(n=160)
+        idx = stream_build(CPU, db, 8, seed=0, max_iter=4,
+                           directory=str(tmp_path / "n1"))
+        peer = stream_build(CPU, db, 8, seed=0, max_iter=4,
+                            directory=str(tmp_path / "n2"))
+        mbx = _Mailbox()
+        kw = dict(role="follower", leader=0, acks="async",
+                  election_timeout=60.0)
+        el = ElectionNode(idx, mbx, 1, [0, 1, 2], **kw)
+        other = ElectionNode(peer, mbx, 2, [0, 1, 2], **kw)
+        svc = serve.StreamingKnnService(idx, k=4, nprobe=7)
+        ctl = serve.IngestController(idx, [svc], election=el,
+                                     compact_interval=30.0, refit=False,
+                                     warm_buckets=[8])
+        with ctl:
+            with pytest.raises(ingest.NotLeaderError) as ei:
+                ctl.insert(_rows(3))
+            assert ei.value.leader == 0 and ei.value.rank == 1
+            mbx.fail_peer(0, "killed")
+            # a change the promotion's callback rolls the serving
+            # snapshot forward to
+            idx.delete([5])
+            refreshes = ctl.refreshes
+            # the controller's node sees the failure on its own thread
+            # and elects with the other survivor
+            t = threading.Thread(target=other.run_election)
+            t.start()
+            t.join(timeout=30.0)
+            deadline = time.monotonic() + 30.0
+            while el.last_election is None:
+                assert time.monotonic() < deadline
+                time.sleep(0.01)
+            rec = el.last_election
+            assert rec.winner == 1 and rec.promoted and rec.term == 1
+            assert other.last_election.winner == 1
+            assert ctl.refreshes == refreshes + 1
+            assert ctl.is_leader() and ctl.leader == 1
+            np.testing.assert_array_equal(ctl.insert(_rows(3)),
+                                          [160, 161, 162])
 
     def test_election_wiring_validation(self):
         db, idx = _mk(n=160)

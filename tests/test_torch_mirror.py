@@ -14,10 +14,14 @@ reference may be a plain instance attribute in the port.
 each with the ROADMAP queue item that brings it, or ``"C"`` where
 ROADMAP.md's queue C records the difference as a deliberate divergence.
 A gap that closes must leave the list, and a new gap fails the test.
+
+Every module of the reference has a counterpart of the same path in the
+port but those of :data:`NO_COUNTERPART`, each listed with its reason.
 """
 
 import importlib
 import inspect
+import os
 import pkgutil
 import re
 
@@ -25,6 +29,7 @@ import pytest
 
 import raft_tpu_torch
 
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (reference module, name): the queue item that ports it, or "C"
 GAPS = {
     # A11: the slot grid's TPU layout, which closes with the simplicity
@@ -194,3 +199,50 @@ def test_env_registry_mirrors_the_reference():
         env.register("NOT_A_KNOB", str)
     with pytest.raises(ValueError):
         env.register("RAFT_TPU_X", str, on_malformed="ignore")
+
+
+# reference modules with no counterpart in the port, each with its reason
+NO_COUNTERPART = {
+    "util/pallas_utils.py": "the Pallas wrapper (interpret mode off the "
+                            "TPU) computes nothing; the port's kernels "
+                            "are built and bound by raft_tpu_torch.kernels",
+}
+
+
+def _modules(pkg):
+    root = os.path.join(_REPO, pkg)
+    out = set()
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py") and f != "__init__.py":
+                out.add(os.path.relpath(os.path.join(d, f), root)
+                        .replace(os.sep, "/"))
+    return out
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Each non-``__init__`` module of ``raft_tpu`` has one of the same
+    path in ``raft_tpu_torch``, but those of :data:`NO_COUNTERPART`; an
+    exception that gains a counterpart leaves the list."""
+    ref, port = _modules("raft_tpu"), _modules("raft_tpu_torch")
+    assert ref - port == set(NO_COUNTERPART), sorted(ref - port)
+    assert all(m in ref for m in NO_COUNTERPART)
+
+
+@pytest.mark.parametrize("mod", ["wal_ship", "election"])
+def test_failover_modules_mirror_the_reference(mod):
+    """The replication modules carry the reference's ``__all__``, mailbox
+    tags, frame kinds and error types (the public names and signatures
+    are held by the parametrized test above)."""
+    port = importlib.import_module(f"raft_tpu_torch.neighbors.{mod}")
+    ref = importlib.import_module(f"raft_tpu.neighbors.{mod}")
+    assert port.__all__ == ref.__all__
+    for name in ref.__all__:
+        r, p = getattr(ref, name), getattr(port, name)
+        if isinstance(r, int):
+            assert p == r, name
+        elif inspect.isclass(r) and issubclass(r, Exception):
+            assert [c.__name__ for c in p.__mro__[:3]] == \
+                [c.__name__ for c in r.__mro__[:3]], name
+    assert ("raft_tpu_torch.neighbors." + mod,
+            "raft_tpu.neighbors." + mod) in PAIRS
